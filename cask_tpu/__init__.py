@@ -1,14 +1,15 @@
-"""cask_tpu — a TPU-native sparse linear-algebra framework.
+"""cask_tpu — a sparse linear-algebra framework in JAX.
 
 A from-scratch reimplementation of the capability surface of caskorg/cask
 (an FPGA/Maxeler sparse-kernel library with instance-directed tuning),
-redesigned for TPUs:
+redesigned for accelerators that XLA compiles for (an NVIDIA H100 is the
+measured target):
 
 - Sparse formats (CSR / COO / BSR) as JAX pytrees with host-side
   preprocessing (cask analog: ``CsrMatrix`` + DFE stream encoding).
 - SpMV / SpMM / SpGEMM / sparse triangular solve / ILU(0) as jittable ops
-  with Pallas TPU kernels on the hot paths and XLA fallback paths
-  everywhere (cask analog: MaxJ dataflow kernels + host runtime).
+  in plain JAX, with diagonal-packed (DIA/BDIA) plans on the banded hot
+  paths (cask analog: MaxJ dataflow kernels + host runtime).
 - A per-matrix autotuner searching block size / layout / kernel variant,
   cached by sparsity signature (cask analog: the DSE + codegen layer —
   JIT compilation replaces bitstream builds).

@@ -35,7 +35,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="cask-tpu-bench")
     ap.add_argument("--out", default=None, help="append JSON lines to file")
     ap.add_argument("--cpu", action="store_true",
-                    help="force the CPU harness (8 fake devices)")
+                    help="run on the CPU (8 virtual devices) instead of the "
+                         "accelerator")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p_spmv = sub.add_parser("spmv")
@@ -45,7 +46,7 @@ def main(argv=None):
         p.add_argument("--suite", default="small", choices=["small", "medium"])
         p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
         p.add_argument("--variants", default=None,
-                       help="comma list, e.g. dia_pallas,csr_xla")
+                       help="comma list, e.g. dia_xla,csr_xla")
     p_spmm.add_argument("--k", type=int, default=32)
 
     p_sc = sub.add_parser("scaling")
@@ -64,20 +65,11 @@ def main(argv=None):
     p_tn.add_argument("--suite", default="small", choices=["small", "medium"])
     p_tn.add_argument("--k", type=int, default=None)
 
-    p_cal = sub.add_parser(
-        "calibrate", help="measure POH cost constants for this backend "
-        "and store them in the tuner cache (TPU; a few Pallas compiles)")
-    p_cal.add_argument("--force", action="store_true")
-
     args = ap.parse_args(argv)
 
-    if args.cpu:
-        import os
+    from cask_tpu.utils import platform
 
-        os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
+    platform.start(["--cpu"] if args.cpu else [])
 
     out = open(args.out, "a") if args.out else sys.stdout
     try:
@@ -110,15 +102,6 @@ def main(argv=None):
                 t = tune(a, k=args.k, force=True)
                 print(f"{name}: {t.variant} ({t.seconds_per_op:.3e} s/op)",
                       file=sys.stderr)
-        elif args.cmd == "calibrate":
-            import json
-
-            from cask_tpu.tune.calibrate import backend_kind, calibrate_poh
-
-            eb = calibrate_poh(force=args.force)
-            print(json.dumps({"op": "calibrate_poh",
-                              "backend": backend_kind(),
-                              "equiv_bytes": eb}), file=out, flush=True)
     finally:
         if args.out:
             out.close()

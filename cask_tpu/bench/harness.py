@@ -12,16 +12,28 @@ from __future__ import annotations
 import json
 import sys
 import time
+from functools import partial
 from typing import Iterable, Optional, TextIO
 
 import jax.numpy as jnp
 import numpy as np
 
-from cask_tpu.bench.roofline import spmv_traffic
+from cask_tpu.bench.roofline import PEAKS, spmv_traffic
 from cask_tpu.formats.matrix import CSR
-from cask_tpu.tune.timing import measure
-from cask_tpu.tune.tuner import Variant, enumerate_variants
 from cask_tpu.formats.signature import signature
+from cask_tpu.tune.timing import measure
+from cask_tpu.tune.tuner import Variant, _apply, enumerate_variants
+from cask_tpu.utils import platform
+
+
+def device_record() -> dict:
+    """What every record names: the device the numbers come from."""
+    import jax
+
+    return {"platform": platform.platform(),
+            "device_kind": platform.device_kind(),
+            "device_count": len(jax.devices()),
+            "card": platform.card()}
 
 
 def bench_matrix(name: str, a: CSR, *, k: Optional[int] = None,
@@ -72,13 +84,19 @@ def bench_matrix(name: str, a: CSR, *, k: Optional[int] = None,
             "nnz": a.nnz,
             "dtype": str(np.dtype(dtype)),
             "ts": time.time(),
+            **device_record(),
         }
         try:
-            dev, fn = var.build(a, k)
-            meas = measure(fn, x0)
-            traffic = spmv_traffic(dev if not callable(dev) else a, var.name, k or 1)
-            rec.update(traffic.record(meas.seconds_per_iter))
-            rec["reliable"] = meas.reliable
+            dev, fn, info = var.build_full(a, k)
+            meas = measure(fn, x0) if info else measure(_apply, dev, x0)
+            traffic = spmv_traffic(dev, k or 1)
+            peak = PEAKS.get(rec["device_kind"])
+            if peak is not None:
+                rec.update(traffic.record(meas.seconds_per_iter,
+                                          bandwidth=peak["hbm_bytes_per_s"]))
+            else:
+                rec["seconds_per_op"] = meas.seconds_per_iter
+            rec["spread"] = meas.spread
             if scipy_s is not None and meas.seconds_per_iter > 0:
                 rec["scipy_seconds"] = scipy_s
                 rec["speedup_vs_scipy"] = round(scipy_s / meas.seconds_per_iter, 2)
@@ -123,7 +141,7 @@ def bench_scaling(side: int = 512, *, nshards_list=(1, 2, 4, 8),
         a = plan
         op = DistSpmv(plan, row_mesh(p))
         xp = op.padded(np.random.default_rng(0).standard_normal(a.shape[0]).astype(np.float32))
-        meas = measure(op.padded_op, xp)
+        meas = measure(op.padded_op_with, op.operands, xp)
         per_row = meas.seconds_per_iter / a.shape[0]
         rec = {
             "op": "dist_spmv_weak_scaling",
@@ -131,7 +149,8 @@ def bench_scaling(side: int = 512, *, nshards_list=(1, 2, 4, 8),
             "rows": a.shape[0],
             "seconds_per_op": meas.seconds_per_iter,
             "ns_per_row": per_row * 1e9,
-            "reliable": meas.reliable,
+            "spread": meas.spread,
+            **device_record(),
         }
         if base_t is None:
             base_t = per_row
@@ -165,10 +184,10 @@ def bench_overlap(side: int = 512, *, nshards: Optional[int] = None,
     for name, ov in (("overlapped", True), ("serialized", False)):
         op = DistSpmv(plan, mesh, overlap=ov)
         xp = op.padded(x)
-        meas = measure(op.padded_op, xp)
+        meas = measure(op.padded_op_with, op.operands, xp)
         rec = {"op": "dist_spmv_overlap_ab", "variant": name, "nshards": p,
                "rows": a.shape[0], "seconds_per_op": meas.seconds_per_iter,
-               "reliable": meas.reliable}
+               "spread": meas.spread, **device_record()}
         records.append(rec)
         print(json.dumps(rec), file=out, flush=True)
     if len(records) == 2 and all(np.isfinite(r["seconds_per_op"]) for r in records):
@@ -182,55 +201,33 @@ def bench_overlap(side: int = 512, *, nshards: Optional[int] = None,
 
 def bench_solve(side: int = 512, *, dtype=np.float32,
                 out: TextIO = sys.stdout) -> "list[dict]":
-    """Per-iteration CG cost on a Poisson system via the k-ladder
-    protocol (the end-to-end solver metric; cask analog: the CG demo's
-    wall numbers)."""
-    import time as _time
-
+    """Per-iteration CG cost on a Poisson system (the end-to-end solver
+    metric; cask analog: the CG demo's wall numbers): the difference of
+    two fixed-iteration solves' median times over their iteration gap."""
     import jax
 
     from cask_tpu.formats.device_gen import stencil2d_dia_device
-    from cask_tpu.ops.dia import DiaOperator
-    from cask_tpu.solvers import cg
-
-    from cask_tpu.solvers import pipelined_cg
+    from cask_tpu.solvers import cg, pipelined_cg
 
     m = side * side
     dia = stencil2d_dia_device(side, dtype=dtype)
-    op = DiaOperator(dia)
     b = jax.jit(lambda: jax.random.normal(jax.random.PRNGKey(0), (m,), dtype))()
-    bp = op.to_padded(b)
-
-    def per_iteration(solver):
-        f = jax.jit(lambda bp, k: solver(op, bp, tol=0.0, maxiter=k).iterations)
-
-        def run(k):
-            t0 = _time.perf_counter()
-            int(f(bp, jnp.asarray(k, jnp.int32)))
-            return _time.perf_counter() - t0
-
-        ks = (10, 200, 400, 600)
-        run(ks[0]); run(ks[-1])
-        walls = {}
-        for _ in range(2):
-            for k in ks:
-                walls[k] = min(walls.get(k, float("inf")), run(k))
-        slopes = sorted(
-            (walls[b2] - walls[a2]) / (b2 - a2) for a2 in ks for b2 in ks if b2 > a2
-        )
-        return slopes[len(slopes) // 2]
 
     records = []
     for name, solver in (("cg", cg), ("pipelined_cg", pipelined_cg)):
-        per_iter = per_iteration(solver)
+        def run(a, b, iters, solver=solver):
+            return solver(a.spmv, b, tol=0.0, maxiter=iters).x
+
+        t_lo = measure(partial(run, iters=100), dia, b, iters=5)
+        t_hi = measure(partial(run, iters=300), dia, b, iters=5)
+        per_iter = (t_hi.seconds_per_iter - t_lo.seconds_per_iter) / 200
         rec = {
             "op": "pcg_per_iteration",
             "solver": name,
             "matrix": f"stencil5_{side}x{side}",
             "rows": m,
-            "operator_mode": op.mode,
-            "us_per_iteration": round(per_iter * 1e6, 2),
-            "iterations_per_s": round(1.0 / per_iter, 1),
+            "us_per_iteration": per_iter * 1e6,
+            **device_record(),
         }
         records.append(rec)
         print(json.dumps(rec), file=out, flush=True)

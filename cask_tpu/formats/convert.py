@@ -48,7 +48,8 @@ def coo_to_csr(a: COO, *, sum_duplicates: bool = True) -> CSR:
     data = np.asarray(a.data)
     row = np.asarray(a.row, dtype=np.int64)
     col = np.asarray(a.col, dtype=np.int64)
-    order = np.lexsort((col, row))
+    # one int64 key, stable: the same order as lexsort((col, row))
+    order = np.argsort(row * a.shape[1] + col, kind="stable")
     row, col, data = row[order], col[order], data[order]
     if sum_duplicates and data.size:
         key = row * a.shape[1] + col
@@ -60,8 +61,7 @@ def coo_to_csr(a: COO, *, sum_duplicates: bool = True) -> CSR:
         np.add.at(out_data, seg, data)
         row, col, data = row[uniq_mask], col[uniq_mask], out_data
     indptr = np.zeros(a.shape[0] + 1, dtype=np.int64)
-    np.add.at(indptr, row + 1, 1)
-    indptr = np.cumsum(indptr)
+    np.cumsum(np.bincount(row, minlength=a.shape[0]), out=indptr[1:])
     return CSR(
         data=data,
         indices=col.astype(_INT),
@@ -200,9 +200,8 @@ def transpose(a):
     reuse it; never transpose inside a hot loop.
 
     Plan types have their own transposers: ``ops.dia.transpose_plan``,
-    ``ops.bdia.transpose_plan``, ``ops.pallas.poh_kernels.
-    poh_transpose_plan`` — or pass ``transpose=True`` to :func:`spmv` /
-    :func:`spmm`, which routes through them.
+    ``ops.bdia.transpose_plan`` — or pass ``transpose=True`` to
+    :func:`spmv` / :func:`spmm`, which routes through them.
     """
     if isinstance(a, COO):
         return COO(data=a.data, row=a.col, col=a.row,

@@ -7,7 +7,7 @@ through ``jax.jit`` / ``shard_map`` like any other JAX value.
 
 Conventions
 -----------
-- Indices are ``int32`` (TPU-native integer width).
+- Indices are ``int32`` (the accelerator's native index width).
 - Arrays may be host ``numpy`` arrays or device ``jax.Array``s; host-side
   preprocessing (construction, conversion, reordering) happens in numpy /
   the native C++ core, device placement via :meth:`device_put`.
@@ -128,8 +128,8 @@ class CSR:
 class BSR:
     """Block-sparse-row matrix with dense ``(br, bc)`` blocks.
 
-    This is the performance format on TPU: a block multiply is a small
-    dense matmul / tile FMA, which turns CSR's scalar x-gather into
+    The performance format for block-structured matrices: a block
+    multiply is a small dense matmul, which turns CSR's scalar x-gather into
     contiguous vector loads (SURVEY.md §7 hard-part (b)).  Logical shape
     may not divide the block size; rows/cols are zero-padded up to
     ``padded_shape`` and padding entries are structural zeros.

@@ -1,7 +1,7 @@
 """Bandwidth-reducing reordering (reverse Cuthill–McKee).
 
-cask tuned the *architecture* to the matrix; the TPU analog also tunes
-the *matrix* to the architecture: the DIA/windowed kernels win exactly
+cask tuned the *architecture* to the matrix; the analog here also tunes
+the *matrix* to the formulation: the DIA formulation wins exactly
 when referenced columns cluster near the diagonal, and RCM manufactures
 that locality for matrices whose natural ordering lacks it (SURVEY.md
 §5 "halo minimization").  Native C++ BFS when available; pure-Python

@@ -1,8 +1,9 @@
 """Sparse ops: SpMV, SpMM, SpGEMM, triangular solve, ILU(0).
 
-Each op has an always-available XLA formulation and (where profitable)
-Pallas TPU kernels selected by the autotuner.  cask analog: the kernel
-layer R5 + host runtime R6 (SURVEY.md §2).
+Each op is plain JAX that XLA compiles for the device; where the
+structure allows, diagonal-packed plans (DIA/BDIA) replace the gather
+formulation, chosen per platform or by the autotuner.  cask analog: the
+kernel layer R5 + host runtime R6 (SURVEY.md §2).
 """
 
 from cask_tpu.ops.spmv import spmv  # noqa: F401

@@ -1,31 +1,25 @@
-"""Block-diagonal-packed (BDIA) SpMV — the fast BSR SpMV path.
+"""Block-diagonal-packed (BDIA) SpMV & SpMM — the fast BSR path.
 
-The scalar DIA format (:mod:`cask_tpu.ops.dia`) is the per-chip
-speed-of-light SpMV, but dof-expanded FEM/block matrices defeat it: a
+The scalar DIA format (:mod:`cask_tpu.ops.dia`) streams banded matrices
+with no index traffic, but dof-expanded FEM/block matrices defeat it: a
 ``b×b``-blocked band expands to ``(2b−1)`` scalar diagonals per block
 offset, each only ``b/(2b−1)`` dense (57 % for b=4), so ~43 % of the
 streamed bytes are structural-zero fill.  BDIA removes the fill with a
-block-aware de-interleave — the TPU analog of cask's multi-pipe stream
+block-aware de-interleave — the analog of cask's multi-pipe stream
 partitioning (SURVEY.md §2 R5), applied at dof granularity:
 
 - **x** is split by block *component*: ``x_c = x[c::bc]`` (length = block
-  columns), each an independent contiguous segment resident in VMEM —
-  the vector-cache role.
+  columns), each an independent contiguous segment.
 - **y** likewise by block row component: ``y_r = y[r::br]``.
 - a block diagonal at block offset ``d`` contributes, for every ``(r,c)``
   element position, one **full-density** diagonal over the block index:
   ``y_r[i] += A_{d}[i][r,c] · x_c[i+d]``.
 
 Every term is a shifted elementwise FMA exactly like scalar DIA — zero
-gathers, zero fill: the value stream is exactly ``nnz`` entries (stored
-block entries).  The Pallas kernel (:mod:`cask_tpu.ops.pallas.bdia_kernels`)
-streams values tile-by-tile with x resident; blocks on sparse block
-diagonals spill to a scalar COO remainder (HYB discipline, same as DIA).
-
-Reference parity note: the empty-mount reference (SURVEY.md PROVENANCE)
-is specified by BASELINE.json config 2 / north star — "tuned BSR SpMV"
-— which this kernel realizes; cask's own analog is the SpMV architecture
-family (SURVEY.md §2 R2/R5).
+gathers, zero fill: the value stream is exactly the stored block
+entries, and XLA fuses the loop over pairs into one pass.  Blocks on
+sparse block diagonals spill to a scalar COO remainder (HYB discipline,
+same as DIA).
 """
 
 from __future__ import annotations
@@ -39,81 +33,24 @@ import numpy as np
 
 from cask_tpu.formats.matrix import BSR, CSR
 
-_LANE = 128
-_TS_CHOICES = (64, 32, 16, 8)  # value-tile sublanes (largest with low pad waste)
-_MAX_PAIRS = 80  # unrolled (c, d) FMA terms in the Pallas kernel
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-import functools
-
-
-def _perm_mm(w, p: np.ndarray):
-    """Exact permutation matmul ``w @ p`` on the MXU.
-
-    ``p`` is 0/1 (exactly representable in bf16), so only ``w`` needs
-    splitting: an f32 value is exactly the sum of three bf16 components
-    (8 mantissa bits each), and each pass selects a single component per
-    output — three default-precision MXU passes reproduce f32 exactly,
-    at half the cost of ``precision='highest'`` (which splits both
-    operands; probe8c measured the 6-pass route at ~3x the bf16 one)."""
-    if w.dtype == jnp.bfloat16:
-        return jnp.matmul(w, jnp.asarray(p, jnp.bfloat16),
-                          preferred_element_type=jnp.float32).astype(w.dtype)
-    # f32/f64: precision='highest' — measured EXACT on hardware
-    # (probe8c, relerr 0.0 end-to-end) at 6 MXU passes.  Cheaper 3-pass
-    # bf16-split formulations are mathematically exact but NOT stable
-    # under XLA:TPU's simplifier: three dots refold into dot(Σcᵢ) with
-    # the sum in bf16 (probe8d), dot(concat) re-splits and refolds the
-    # same way (probe8e), and even with an optimization_barrier the
-    # split survived at one call site but truncated at another
-    # (probe9: to_resident exact, from_resident 2.8e-3).  Don't
-    # re-attempt the split without per-call-site hardware verification.
-    return jnp.matmul(w, jnp.asarray(p, w.dtype), precision="highest")
-
-
-@functools.lru_cache(maxsize=None)
-def _deint_perm(b: int) -> np.ndarray:
-    """(128·b, 128·b) 0/1 matrix: right-multiplying a (rows, 128·b)
-    natural-order block sends component c to lanes [c·128, (c+1)·128)."""
-    L = _LANE * b
-    p = np.zeros((L, L), np.float32)
-    j = np.arange(L)
-    p[j, (j % b) * _LANE + j // b] = 1.0
-    return p
-
-
-def _pick_ts(nbr: int) -> int:
-    """Largest tile that keeps block-row padding waste ≤ 8 %."""
-    for ts in _TS_CHOICES:
-        pad = _round_up(max(nbr, 1), ts * _LANE)
-        if (pad - nbr) / max(nbr, 1) <= 0.08:
-            return ts
-    return _TS_CHOICES[-1]
-
-
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BdiaMatrix:
     """Block-diagonal-packed matrix plus scalar COO remainder.
 
-    ``vals[r, t, j, s, l]`` is the ``(r, c)`` element of the block at
-    block row ``i = (t·TS + s)·128 + l`` on block offset ``d``, where
-    ``j = dpos·bc + c`` enumerates the static ``pairs`` (block offset ×
-    column component).  Values stream tile-contiguously per grid step.
+    ``vals[r, j, i]`` is the ``(r, c)`` element of the block at block row
+    ``i`` on block offset ``d``, where ``j = dpos·bc + c`` enumerates the
+    static ``pairs`` (block offset × column component).  Each
+    ``vals[r, j]`` is one full-density diagonal over the block index.
     """
 
-    vals: jax.Array  # (br, T, D', TS, 128)
+    vals: jax.Array  # (br, npairs, nbr)
     rem_data: jax.Array  # scalar COO remainder (may be size 0)
     rem_row: jax.Array
     rem_col: jax.Array
     block_offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
     blocksize: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-    ts: int = dataclasses.field(metadata=dict(static=True))
 
     # -- geometry ---------------------------------------------------------
 
@@ -128,16 +65,8 @@ class BdiaMatrix:
         return -(-self.shape[1] // bc)
 
     @property
-    def nb_pad(self) -> int:
-        return int(self.vals.shape[1]) * self.ts * _LANE
-
-    @property
-    def n_tiles(self) -> int:
-        return int(self.vals.shape[1])
-
-    @property
     def npairs(self) -> int:
-        return int(self.vals.shape[2])
+        return int(self.vals.shape[1])
 
     @property
     def dtype(self):
@@ -150,69 +79,6 @@ class BdiaMatrix:
     @property
     def hi(self) -> int:
         return max(max(self.block_offsets), 0)
-
-    @property
-    def seg_rows(self) -> int:
-        """Rows (of 128 lanes) per x component segment: the whole padded
-        block-column range plus the diagonal-span slack the windowed
-        reads touch."""
-        need_cols = self.lo + self.nbc + self.hi  # lo pad + x_c + hi reads
-        need_tiles = self.nb_pad // _LANE + (self.lo + self.hi) // _LANE + 2
-        return max(_round_up(need_cols, _LANE) // _LANE + 1, need_tiles)
-
-    @property
-    def resident_pads(self) -> Tuple[int, int]:
-        """(p0t, p1t): lo/hi pad *tiles* of the solver-resident layout.
-
-        The lo pad is a whole number of value tiles so input and output
-        share one segmented layout (zero-copy Krylov chaining)."""
-        lo_rows = -(-self.lo // _LANE)
-        hi_rows = self.hi // _LANE + 2
-        p0t = -(-max(lo_rows, 1) // self.ts)
-        p1t = -(-hi_rows // self.ts)
-        return p0t, p1t
-
-    @property
-    def resident_seg_rows(self) -> int:
-        p0t, p1t = self.resident_pads
-        return (p0t + self.n_tiles + p1t) * self.ts
-
-    def to_resident(self, x):
-        """(n,) vector → the shared (bc·SEG, 128) solver layout.
-
-        The component de-interleave runs as ONE permutation matmul on
-        (·, 128·bc) rows — TPU narrow transposes relayout at ~375 µs per
-        1M rows (probe7) while the MXU permutation costs µs-class, and
-        each component lands lane-aligned for a plain row copy."""
-        bc = self.blocksize[1]
-        n = self.shape[1]
-        seg = self.resident_seg_rows
-        p0t, _ = self.resident_pads
-        off_rows = p0t * self.ts
-        L = _LANE * bc
-        rt = -(-self.nbc // _LANE)  # rows of 128 block-components
-        xp = jnp.zeros((rt * L,), x.dtype).at[:n].set(x)
-        w = _perm_mm(xp.reshape(rt, L), _deint_perm(bc))
-        x2 = jnp.zeros((bc * seg, _LANE), x.dtype)
-        for c in range(bc):
-            x2 = jax.lax.dynamic_update_slice(
-                x2, w[:, c * _LANE : (c + 1) * _LANE], (c * seg + off_rows, 0))
-        return x2
-
-    def from_resident(self, y2):
-        br = self.blocksize[0]
-        m = self.shape[0]
-        seg = self.resident_seg_rows
-        p0t, _ = self.resident_pads
-        off_rows = p0t * self.ts
-        rt = -(-self.nbr // _LANE)
-        parts = [
-            jax.lax.dynamic_slice(y2, (r * seg + off_rows, 0), (rt, _LANE))
-            for r in range(br)
-        ]
-        v = jnp.concatenate(parts, axis=1)  # (rt, 128·br), r-major blocks
-        w = _perm_mm(v, _deint_perm(br).T)
-        return w.reshape(-1)[:m]
 
     @property
     def pairs(self) -> Tuple[Tuple[int, int], ...]:
@@ -235,134 +101,88 @@ class BdiaMatrix:
             self, vals=self.vals.astype(dtype), rem_data=self.rem_data.astype(dtype)
         )
 
-    # -- layout -----------------------------------------------------------
-
-    def to_bdia(self, x):
-        """(n,) vector → the (bc·SEG, 128) component-deinterleaved layout."""
-        bc = self.blocksize[1]
-        n = self.shape[1]
-        seg = self.seg_rows
-        xp = jnp.zeros((self.nbc * bc,), x.dtype).at[:n].set(x)
-        xc = xp.reshape(self.nbc, bc).T  # (bc, nbc)
-        x2 = jnp.zeros((bc, seg * _LANE), x.dtype)
-        x2 = x2.at[:, self.lo : self.lo + self.nbc].set(xc)
-        return x2.reshape(bc * seg, _LANE)
-
-    def from_bdia(self, y3):
-        """(br, T·TS, 128) kernel output → (m,) natural-order vector."""
-        br = self.blocksize[0]
-        m = self.shape[0]
-        y = y3.reshape(br, -1)[:, : self.nbr]  # (br, nbr)
-        return y.T.reshape(-1)[:m]
-
     # -- compute ----------------------------------------------------------
 
-    def spmv(self, x, *, method: str = "auto"):
-        if method in ("auto", "pallas", "fused"):
-            # gate on the FUSED kernel's own preconditions, not just the
-            # resident ones (ADVICE r4: a wide-band plan can pass
-            # bdia_pallas_ok yet exceed the fused halo-slab / seg128
-            # VMEM limits — fall back to XLA instead of raising)
-            from cask_tpu.ops.pallas.bdia_kernels import (
-                bdia_fused_ok,
-                bdia_spmv_pallas_fused,
-            )
-            from cask_tpu.utils.platform import on_tpu
+    def _components(self, x):
+        """``(bc, lo + nbr + hi, ...)``: x split by block column component
+        and zero-padded so every pair's shifted window is one static
+        slice of length nbr."""
+        bc = self.blocksize[1]
+        rest = x.shape[1:]
+        xb = jnp.pad(x, [(0, self.nbc * bc - x.shape[0])] + [(0, 0)] * len(rest))
+        xc = jnp.moveaxis(xb.reshape((self.nbc, bc) + rest), 1, 0)
+        pad = [(0, 0), (self.lo, max(self.nbr + self.hi - self.nbc, 0))]
+        return jnp.pad(xc, pad + [(0, 0)] * len(rest))
 
-            if bdia_fused_ok(self) and (method in ("pallas", "fused") or on_tpu()):
-                # natural-in/natural-out kernel: the component relayout
-                # runs in-kernel (VERDICT r2 item 2) — one-shot callers
-                # no longer pay the XLA permutation-matmul wrappers
-                y = bdia_spmv_pallas_fused(self, x)
-                if self.rem_data.shape[0]:
-                    y = y + self._remainder_spmv(x)
-                return y
-        return self._spmv_xla(x)
-
-    def _spmv_xla(self, x):
-        """Same math fully in XLA (tests / non-TPU backends)."""
-        br, bc = self.blocksize
-        m, n = self.shape
-        lo, hi = self.lo, self.hi
-        xc = jnp.zeros((self.nbc * bc,), x.dtype).at[:n].set(x).reshape(self.nbc, bc).T
-        # width covers every slice start (tall matrices: nbr > nbc)
-        xp = jnp.zeros((bc, lo + max(self.nbc, self.nbr) + hi + 1), x.dtype)
-        xp = xp.at[:, lo : lo + self.nbc].set(xc)
+    def _acc_dtype(self, x):
         acc_t = jnp.promote_types(self.vals.dtype, x.dtype)
         if jnp.bfloat16 in (self.vals.dtype, x.dtype):
             acc_t = jnp.promote_types(acc_t, jnp.float32)
-        vflat = self.vals.reshape(br, self.n_tiles, self.npairs, -1)
-        vflat = jnp.moveaxis(vflat, 2, 1).reshape(br, self.npairs, -1)[..., : self.nbr]
-        y = jnp.zeros((br, self.nbr), dtype=acc_t)
-        for j, (c, d) in enumerate(self.pairs):
-            xs = jax.lax.dynamic_slice(xp, (c, lo + d), (1, self.nbr))[0]
-            y = y + vflat[:, j, :].astype(acc_t) * xs.astype(acc_t)
-        out = y.T.reshape(-1)[:m]
-        if self.rem_data.shape[0]:
-            out = out + self._remainder_spmv(x)
-        return out
+        return acc_t
 
-    def _remainder_spmv(self, x):
-        prod = self.rem_data * x[self.rem_col]
-        return jax.ops.segment_sum(prod, self.rem_row, num_segments=self.shape[0])
+    def spmv(self, x):
+        """``y = A x``: the banded kernel where the platform's route
+        enables it (:func:`cask_tpu.utils.platform.kernel`), the XLA
+        formulation otherwise.  ``x`` may be an (n, k) block (SpMM),
+        which always takes the XLA formulation."""
+        from cask_tpu.utils import platform
+
+        x = jnp.asarray(x)
+        if x.ndim != 1 or not platform.kernel("bdia"):
+            return self._xla(x)
+        from cask_tpu.ops.banded_kernel import banded_spmv
+
+        y = banded_spmv(self.vals, x, pairs=self.pairs,
+                        blocksize=self.blocksize, shape=self.shape)
+        if self.rem_data.shape[0]:
+            y = y + jax.ops.segment_sum(self.rem_data * x[self.rem_col],
+                                        self.rem_row, num_segments=self.shape[0])
+        return y
+
+    def spmm(self, x):
+        return self._xla(jnp.asarray(x))
+
+    def _xla(self, x):
+        """``y_r[i] += vals[r, j, i] · x_c[i + d]`` for every pair
+        ``j = (c, d)``: shifted FMAs over component planes, which XLA
+        fuses into one pass over the values."""
+        br = self.blocksize[0]
+        m = self.shape[0]
+        nbr, lo = self.nbr, self.lo
+        xp = self._components(x)
+        acc_t = self._acc_dtype(x)
+        rest = x.shape[1:]
+        y = jnp.zeros((br, nbr) + rest, dtype=acc_t)
+        for j, (c, d) in enumerate(self.pairs):
+            v = self.vals[:, j, :].astype(acc_t)
+            if rest:
+                v = v[..., None]
+            y = y + v * xp[c, lo + d : lo + d + nbr].astype(acc_t)
+        out = jnp.moveaxis(y, 0, 1).reshape((nbr * br,) + rest)[:m]
+        if self.rem_data.shape[0]:
+            data = self.rem_data if not rest else self.rem_data[:, None]
+            out = out + jax.ops.segment_sum(
+                data * x[self.rem_col], self.rem_row, num_segments=m)
+        return out
 
 
 class BdiaOperator:
-    """Solver-facing SpMV operator in the zero-copy resident layout.
+    """Solver-facing SpMV operator over a BDIA plan — the BDIA twin of
+    :class:`cask_tpu.ops.dia.DiaOperator` (identity paddings)."""
 
-    The BDIA twin of :class:`cask_tpu.ops.dia.DiaOperator`: every Krylov
-    vector stays in the segmented layout, so iterations pay no
-    de-interleave copies (cask lesson §3.3: no boundary crossing per
-    iteration).  Falls back to the XLA formulation off-TPU or when the
-    Pallas geometry doesn't hold.
-    """
-
-    def __init__(self, a, blocksize=None, *, method: str = "auto"):
+    def __init__(self, a, blocksize=None):
         if not isinstance(a, BdiaMatrix):
             a = bdia_plan(a, blocksize)
         self.bdia = a
-        br, bc = a.blocksize
-        use_pallas = (
-            method in ("auto", "pallas") and br == bc and bdia_pallas_ok(a)
-            and a.rem_data.shape[0] == 0
-        )
-        if method == "pallas" and not use_pallas:
-            raise ValueError("resident BDIA Pallas path unavailable "
-                             "(needs square blocks, VMEM-resident x, no remainder)")
-        if use_pallas and method == "auto":
-            from cask_tpu.utils.platform import on_tpu
-
-            use_pallas = on_tpu()
-        self.mode = "resident" if use_pallas else "xla"
 
     def to_padded(self, v):
-        import jax.numpy as jnp_
-
-        if self.mode == "resident":
-            return self.bdia.to_resident(jnp_.asarray(v))
-        return jnp_.asarray(v)
+        return jnp.asarray(v)
 
     def from_padded(self, v):
-        if self.mode == "resident":
-            return self.bdia.from_resident(v)
         return v
 
     def __call__(self, v):
-        if self.mode == "resident":
-            from cask_tpu.ops.pallas.bdia_kernels import bdia_spmv_pallas_resident
-
-            return bdia_spmv_pallas_resident(self.bdia, v)
-        return self.bdia._spmv_xla(v)
-
-
-def bdia_pallas_ok(a: BdiaMatrix) -> bool:
-    from cask_tpu.ops.pallas.dia_kernels import _X_VMEM_BUDGET
-
-    if a.npairs > _MAX_PAIRS:
-        return False
-    db = jnp.dtype(a.vals.dtype).itemsize
-    bc = a.blocksize[1]
-    return bc * a.seg_rows * _LANE * db <= _X_VMEM_BUDGET
+        return self.bdia.spmv(v)
 
 
 def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
@@ -397,28 +217,15 @@ def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
         kept = np.array([0], dtype=np.int64)
     in_dia = np.isin(d, kept)
 
-    ts = _pick_ts(nbr)
-    nb_pad = _round_up(max(nbr, 1), ts * _LANE)
-    T = nb_pad // (ts * _LANE)
     npairs = len(kept) * bc
-    vals = np.zeros((br, T, npairs, ts, _LANE), dtype=data.dtype)
+    vals = np.zeros((br, npairs, nbr), dtype=data.dtype)
 
     kb = np.nonzero(in_dia)[0]
     if kb.size:
-        i = ib[kb]
         dpos = np.searchsorted(kept, d[kb])
-        t_idx = i // (ts * _LANE)
-        rem_i = i % (ts * _LANE)
-        s_idx = rem_i // _LANE
-        l_idx = rem_i % _LANE
         c_rng = np.arange(bc)
-        vals[
-            :,
-            t_idx[:, None],
-            dpos[:, None] * bc + c_rng[None, :],
-            s_idx[:, None],
-            l_idx[:, None],
-        ] = data[kb].transpose(1, 0, 2)
+        vals[:, dpos[:, None] * bc + c_rng[None, :], ib[kb][:, None]] = \
+            data[kb].transpose(1, 0, 2)
 
     # spill remainder blocks to scalar COO triples
     rb = np.nonzero(~in_dia)[0]
@@ -445,7 +252,6 @@ def bdia_plan(a: Union[BSR, CSR], blocksize: Optional[Tuple[int, int]] = None,
         block_offsets=tuple(int(o) for o in kept),
         shape=(m, n),
         blocksize=(br, bc),
-        ts=ts,
     )
 
 
@@ -457,8 +263,7 @@ def bdia_to_coo(a: BdiaMatrix):
 
     br, bc = a.blocksize
     m, n = a.shape
-    vflat = np.moveaxis(np.asarray(a.vals), 2, 1).reshape(br, a.npairs, -1)
-    vflat = vflat[:, :, : a.nbr]
+    vflat = np.asarray(a.vals)[:, :, : a.nbr]
     r_i, j_i, i_i = np.nonzero(vflat)
     offs = np.asarray(a.block_offsets, dtype=np.int64)
     d = offs[j_i // bc]
@@ -471,21 +276,6 @@ def bdia_to_coo(a: BdiaMatrix):
     vals = np.concatenate([vals[ok], np.asarray(a.rem_data)])
     return COO(data=vals, row=rows.astype(np.int32),
                col=cols.astype(np.int32), shape=(m, n))
-
-
-def bdia_scalar_dia(a: BdiaMatrix):
-    """The scalar-DIA plan of the expanded block structure, memoized on
-    the instance (host-side conversion; repeated ``spmm`` calls in a
-    solver loop must not re-plan per call — ADVICE r2).  Requires
-    concrete (non-tracer) leaves, like every host planning step."""
-    cached = getattr(a, "_scalar_dia_cache", None)
-    if cached is None:
-        from cask_tpu.formats.convert import coo_to_csr
-        from cask_tpu.ops.dia import dia_plan
-
-        cached = dia_plan(coo_to_csr(bdia_to_coo(a)))
-        object.__setattr__(a, "_scalar_dia_cache", cached)
-    return cached
 
 
 def transpose_plan(a: BdiaMatrix, *, min_density: float = 0.10,

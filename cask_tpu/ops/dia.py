@@ -1,23 +1,18 @@
-"""Diagonal-packed (DIA/HYB) SpMV & SpMM — the per-chip speed-of-light path.
+"""Diagonal-packed (DIA/HYB) SpMV & SpMM for banded and stencil matrices.
 
 cask's hardware SpMV streamed the matrix through parallel pipes while the
-x vector sat in an on-chip BRAM cache (SURVEY.md §2 R5).  The TPU-native
-transplant of that idea: pack the matrix's populated *diagonals* into a
-dense (ndiags, m) value array that streams from HBM at full bandwidth,
-while x lives on-chip (VMEM); each diagonal contributes a *shifted*
-elementwise FMA — no gathers at all, which is what makes reaching the
-HBM roofline possible on a machine without hardware gather (SURVEY.md §7
-hard-part (b)).
+x vector sat in an on-chip BRAM cache (SURVEY.md §2 R5).  The analog
+here: pack the matrix's populated *diagonals* into a dense
+(ndiags, m) value array that streams from device memory once, while x
+is re-read from cache; each diagonal contributes a *shifted* elementwise
+FMA — no gathers and no index stream at all.  XLA fuses the whole
+shifted-FMA loop into one pass over the values.
 
 Matrices rarely are purely banded, so this is a HYB scheme: diagonals
 below a density threshold spill their entries to a COO *remainder*
-handled by the XLA segment-sum path and added in.  The autotuner decides
-when the split wins (its traffic model is :func:`estimate_dia_traffic`).
-
-Both an XLA formulation (fully fused by the compiler; also the CPU/test
-path) and a Pallas kernel (:mod:`cask_tpu.ops.pallas.dia_kernels`, explicit
-VMEM windowing + double-buffered value stream) are provided; ``DiaMatrix``
-dispatches between them.
+handled by the gather + segment-sum formulation and added in.  The
+autotuner decides when the split wins (its traffic model is
+:func:`estimate_dia_traffic`).
 """
 
 from __future__ import annotations
@@ -31,50 +26,35 @@ import numpy as np
 
 from cask_tpu.formats.matrix import CSR
 
-_LANE = 128
-# Row padding granularity: one full (sublane=64, lane=128) Pallas value
-# tile, so the kernel grid never sees partial blocks (edge masking is
-# resolved at pack time with structural zeros, like BSR padding).
-_ROW_TILE = 64 * 128
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class DiaMatrix:
     """Diagonal-packed matrix plus COO remainder (HYB).
 
-    ``vals[d, r]`` is entry ``A[r, r + offsets[d]]`` (0 outside bounds);
-    rows are padded to a lane multiple.  ``offsets`` is static metadata so
-    XLA sees the shift amounts as constants.
+    ``vals[d, r]`` is entry ``A[r, r + offsets[d]]`` (0 outside bounds).
+    ``offsets`` is static metadata so XLA sees the shift amounts as
+    constants.
     """
 
-    vals: jax.Array  # (ndiags, m_pad)
+    vals: jax.Array  # (ndiags, m)
     rem_data: jax.Array  # (nrem,) remainder values (may be size 0)
     rem_row: jax.Array  # (nrem,) int32
     rem_col: jax.Array  # (nrem,) int32
-    # row-major copy (m_pad, ndiags) for the SpMM kernels: X rows live on
-    # sublanes, so per-row value broadcasts want values with rows on the
-    # sublane dim — streaming this instead of in-kernel transposing costs
-    # memory, not bandwidth (same bytes move either way).  None = absent.
-    vals_t: Optional[jax.Array]
     offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-
-    @property
-    def m_pad(self) -> int:
-        return int(self.vals.shape[1])
 
     @property
     def ndiags(self) -> int:
         return len(self.offsets)
 
     @property
+    def dtype(self):
+        return self.vals.dtype
+
+    @property
     def traffic_bytes(self) -> int:
-        """HBM bytes per SpMV: the streamed value array + remainder."""
+        """Device-memory bytes per SpMV: the streamed values + remainder."""
         db = jnp.dtype(self.vals.dtype).itemsize
         return int(self.vals.size * db + self.rem_data.shape[0] * (db + 8))
 
@@ -86,185 +66,93 @@ class DiaMatrix:
         :func:`cask_tpu.solvers.ir_solve` uses to build its
         low-precision working copy."""
         return dataclasses.replace(
-            self,
-            vals=self.vals.astype(dtype),
-            rem_data=self.rem_data.astype(dtype),
-            vals_t=None if self.vals_t is None else self.vals_t.astype(dtype),
-        )
+            self, vals=self.vals.astype(dtype),
+            rem_data=self.rem_data.astype(dtype))
 
     # -- compute ---------------------------------------------------------
 
-    def spmv(self, x, *, method: str = "auto"):
-        if method in ("auto", "pallas"):
-            from cask_tpu.ops.pallas.dia_kernels import dia_spmv_pallas, pallas_ok
-
-            use = pallas_ok(self, k=None) and (
-                method == "pallas" or _on_tpu()
-            )
-            if use:
-                y = dia_spmv_pallas(self, x)
-                return y + self._remainder_spmv(x) if self.rem_data.shape[0] else y
-        return self._spmv_xla(x)
-
-    def spmm(self, x, *, method: str = "auto"):
-        if method in ("auto", "pallas"):
-            from cask_tpu.ops.pallas.dia_kernels import (
-                dia_spmm_pallas, dia_spmm_pallas_kt, dia_spmm_pallas_ring,
-                kt_ok, pallas_ok, ring_ok)
-
-            k = int(x.shape[1])
-            if method == "pallas" or _on_tpu():
-                # k in sublanes for narrow dense blocks: no lane padding
-                # (k=32 on the standard layout moves 4x the X/Y bytes)
-                if k <= 64 and kt_ok(self, k):
-                    y = dia_spmm_pallas_kt(self, x)
-                    return y + self._remainder_spmm(x) if self.rem_data.shape[0] else y
-                # wide k: X/Y dominate traffic — the ring kernel reads X
-                # from HBM exactly once (the windowed kernel re-reads by
-                # (tm+span)/tm)
-                if ring_ok(self, k):
-                    y = dia_spmm_pallas_ring(self, x)
-                    return y + self._remainder_spmm(x) if self.rem_data.shape[0] else y
-                if pallas_ok(self, k=k):
-                    y = dia_spmm_pallas(self, x)
-                    return y + self._remainder_spmm(x) if self.rem_data.shape[0] else y
-        return self._spmm_xla(x)
-
-    # XLA formulation: one shifted FMA per diagonal over a padded x.
-    def _spmv_xla(self, x):
+    def _padded_x(self, x):
+        """x with zeros around it, so every diagonal's shifted window is
+        one static slice of length m."""
         m, n = self.shape
-        lo = -min(min(self.offsets, default=0), 0)
-        xp = jnp.zeros(lo + self.m_pad + max(max(self.offsets, default=0), 0) + 1, x.dtype)
-        xp = xp.at[lo : lo + n].set(x)
-        y = jnp.zeros(self.m_pad, dtype=jnp.result_type(self.vals.dtype, x.dtype))
+        lo = -min(min(self.offsets), 0)
+        hi = max(max(self.offsets), 0)
+        pad = [(lo, max(m + hi - n, 0))] + [(0, 0)] * (x.ndim - 1)
+        return lo, jnp.pad(x, pad)
+
+    def spmv(self, x):
+        """One shifted FMA per diagonal over a zero-padded x."""
+        m = self.shape[0]
+        x = jnp.asarray(x)
+        lo, xp = self._padded_x(x)
+        y = jnp.zeros(m, dtype=jnp.result_type(self.vals.dtype, x.dtype))
         for d, off in enumerate(self.offsets):
-            xs = jax.lax.dynamic_slice(xp, (lo + off,), (self.m_pad,))
-            y = y + self.vals[d] * xs
-        y = y[:m]
+            y = y + self.vals[d] * xp[lo + off : lo + off + m]
         if self.rem_data.shape[0]:
-            y = y + self._remainder_spmv(x)
+            y = y + self._remainder(x)
         return y
 
-    def _spmm_xla(self, x):
-        m, n = self.shape
-        k = x.shape[1]
-        lo = -min(min(self.offsets, default=0), 0)
-        hi = max(max(self.offsets, default=0), 0)
-        xp = jnp.zeros((lo + self.m_pad + hi + 1, k), x.dtype)
-        xp = xp.at[lo : lo + n].set(x)
-        y = jnp.zeros((self.m_pad, k), dtype=jnp.result_type(self.vals.dtype, x.dtype))
+    def spmm(self, x):
+        m = self.shape[0]
+        x = jnp.asarray(x)
+        lo, xp = self._padded_x(x)
+        y = jnp.zeros((m, x.shape[1]),
+                      dtype=jnp.result_type(self.vals.dtype, x.dtype))
         for d, off in enumerate(self.offsets):
-            xs = jax.lax.dynamic_slice(xp, (lo + off, 0), (self.m_pad, k))
-            y = y + self.vals[d][:, None] * xs
-        y = y[:m]
+            y = y + self.vals[d][:, None] * xp[lo + off : lo + off + m]
         if self.rem_data.shape[0]:
-            y = y + self._remainder_spmm(x)
+            y = y + self._remainder(x)
         return y
 
-    def _remainder_spmv(self, x):
-        prod = self.rem_data * x[self.rem_col]
-        return jax.ops.segment_sum(prod, self.rem_row, num_segments=self.shape[0])
-
-    def _remainder_spmm(self, x):
-        prod = self.rem_data[:, None] * x[self.rem_col]
-        return jax.ops.segment_sum(prod, self.rem_row, num_segments=self.shape[0])
+    def _remainder(self, x):
+        data = self.rem_data if x.ndim == 1 else self.rem_data[:, None]
+        return jax.ops.segment_sum(data * x[self.rem_col], self.rem_row,
+                                   num_segments=self.shape[0])
 
 
 class DiaOperator:
-    """Solver-facing SpMV operator in the zero-copy padded layout.
+    """Solver-facing SpMV operator over a DIA plan.
 
-    Krylov iterations apply A dozens-to-thousands of times; this keeps
-    every vector in the kernel's own layout so no per-iteration pad /
-    unpad copies happen (cask lesson: no boundary crossing per
-    iteration, SURVEY.md §3.3).  Usage::
+    The plan is built once, so a Krylov loop applies A as one fused
+    shifted-FMA pass per iteration.  ``to_padded``/``from_padded`` are
+    identities, kept so solver code is uniform with the distributed
+    operators::
 
         op = DiaOperator(dia)                    # or DiaOperator(csr)
         res = cg(op, op.to_padded(b))
         x = op.from_padded(res.x)
     """
 
-    def __init__(self, a, *, method: str = "auto", layout: str = "auto"):
+    def __init__(self, a):
         if isinstance(a, CSR):
             a = dia_plan(a)
         self.dia = a
-        from cask_tpu.ops.pallas import dia_kernels as dk
-
-        mode = "xla"
-        if method in ("auto", "pallas"):
-            if layout in ("auto", "interleaved") and dk.interleaved_ok(a, a.vals.dtype):
-                mode = "interleaved"
-            elif layout in ("auto", "layout") and dk.pallas_ok(a, k=None):
-                mode = "layout"
-        self.mode = mode
-        if mode == "interleaved":
-            self._v_pack = dk.pack_vals_interleaved(a)
-        elif mode == "layout":
-            self._v_pack = dk.pack_vals_tiled(a)
-        else:
-            self._v_pack = None
-        self.method = method
-        # f32 prefers the chunk-prefetch streamed-x variant (measured
-        # 0.862 vs 0.816 roofline — the resident copy is serial); bf16's
-        # smaller value stream makes the resident copy win (PERF.md).
-        self.stream_x = (mode == "interleaved"
-                         and a.vals.dtype != jnp.bfloat16)
-
-    @property
-    def _use_layout(self) -> bool:  # backwards-compat for callers/tests
-        return self.mode != "xla"
 
     def to_padded(self, v):
-        from cask_tpu.ops.pallas import dia_kernels as dk
-
-        if self.mode == "interleaved":
-            return dk.to_interleaved(self.dia, jnp.asarray(v))
-        if self.mode == "layout":
-            return dk.to_layout(self.dia, jnp.asarray(v))
         return jnp.asarray(v)
 
     def from_padded(self, v):
-        from cask_tpu.ops.pallas import dia_kernels as dk
-
-        if self.mode == "interleaved":
-            return dk.from_interleaved(self.dia, v)
-        if self.mode == "layout":
-            return dk.from_layout(self.dia, v)
         return v
 
     def __call__(self, v):
-        from cask_tpu.ops.pallas import dia_kernels as dk
-
-        if self.mode == "interleaved":
-            if self.stream_x:
-                return dk.dia_spmv_pallas_il_stream(self.dia, v, self._v_pack)
-            return dk.dia_spmv_pallas_interleaved(self.dia, v, self._v_pack)
-        if self.mode == "layout":
-            return dk.dia_spmv_pallas_layout(self.dia, v, v_tiled=self._v_pack)
-        return self.dia.spmv(v, method=self.method)
+        return self.dia.spmv(v)
 
 
-def solver_operator(a, *, method: str = "auto"):
-    """Best SpMV operator for iterative solves: the zero-copy Pallas
-    paths when the structure allows, XLA HYB otherwise.
+def solver_operator(a):
+    """SpMV operator for iterative solves over a DIA plan of ``a``.
 
-    Returns an object with ``to_padded`` / ``from_padded`` / ``__call__``
-    (identity paddings on the fallback path), so solver code is uniform::
+    Returns an object with ``to_padded`` / ``from_padded`` / ``__call__``,
+    so solver code is uniform::
 
         op = cask_tpu.solver_operator(a)
         res = cask_tpu.solvers.cg(op, op.to_padded(b))
         x = op.from_padded(res.x)
     """
-    return DiaOperator(a, method=method)
+    return DiaOperator(a)
 
 
-def _on_tpu() -> bool:
-    from cask_tpu.utils.platform import on_tpu
-
-    return on_tpu()
-
-
-def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
-             with_vals_t: bool = False) -> DiaMatrix:
+def dia_plan(a: CSR, *, min_density: float = 0.10,
+             max_diags: int = 1024) -> DiaMatrix:
     """Pack ``a``'s dense-enough diagonals; spill the rest to COO.
 
     ``min_density``: keep a diagonal if it holds ≥ this fraction of its
@@ -279,7 +167,6 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
     offs = indices - rows
 
     uniq, counts = np.unique(offs, return_counts=True)
-    diag_len = np.minimum(m, n) - np.abs(uniq) * 0  # length ~ min(m, n - off, m + off)
     diag_len = np.minimum(np.minimum(m, n - uniq), np.minimum(n, m + uniq))
     density = counts / np.maximum(diag_len, 1)
     keep = density >= min_density
@@ -291,8 +178,7 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
 
     in_dia = np.isin(offs, kept_offsets)
 
-    m_pad = _round_up(max(m, 1), _ROW_TILE)
-    vals = np.zeros((max(len(kept_offsets), 1), m_pad), dtype=data.dtype)
+    vals = np.zeros((max(len(kept_offsets), 1), m), dtype=data.dtype)
     if len(kept_offsets):
         d_ids = np.searchsorted(kept_offsets, offs[in_dia])
         vals[d_ids, rows[in_dia]] = data[in_dia]
@@ -306,7 +192,6 @@ def dia_plan(a: CSR, *, min_density: float = 0.10, max_diags: int = 1024,
         rem_data=jnp.asarray(data[rem]),
         rem_row=jnp.asarray(rows[rem].astype(np.int32)),
         rem_col=jnp.asarray(indices[rem].astype(np.int32)),
-        vals_t=jnp.asarray(np.ascontiguousarray(vals.T)) if with_vals_t else None,
         offsets=offsets,
         shape=(m, n),
     )
@@ -347,31 +232,23 @@ def transpose_plan(a: DiaMatrix) -> DiaMatrix:
     """
     m, n = a.shape
     vals = np.asarray(a.vals)
-    new_vals = np.zeros((vals.shape[0], _round_up(max(n, 1), _ROW_TILE)), vals.dtype)
-    new_offsets = []
+    new_vals = np.zeros((vals.shape[0], n), vals.dtype)
+    r = np.arange(n)
     for d, off in enumerate(a.offsets):
-        new_off = -off
-        # rows r of Aᵀ with entry at col r+new_off ⇔ A rows r+new_off
-        src = vals[d]
-        if off >= 0:
-            # Aᵀ[r, r-off] for r in [off, min(m,n-?)+off): shift right by off
-            new_vals[d, off : off + src.shape[0] - off] = src[: src.shape[0] - off]
-        else:
-            k = -off
-            new_vals[d, : src.shape[0] - k] = src[k:]
-        new_offsets.append(new_off)
+        src = r - off
+        ok = (src >= 0) & (src < m)
+        new_vals[d, r[ok]] = vals[d, src[ok]]
     return DiaMatrix(
         vals=jnp.asarray(new_vals),
         rem_data=a.rem_data,
         rem_row=a.rem_col,
         rem_col=a.rem_row,
-        vals_t=None,
-        offsets=tuple(new_offsets),
+        offsets=tuple(-off for off in a.offsets),
         shape=(n, m),
     )
 
 
-def spmv_dia(a, x, *, transpose: bool = False, accum_dtype=None):
+def spmv_dia(a, x, *, transpose: bool = False):
     if isinstance(a, CSR):
         a = dia_plan(a)
     if not isinstance(a, DiaMatrix):
@@ -381,7 +258,7 @@ def spmv_dia(a, x, *, transpose: bool = False, accum_dtype=None):
     return a.spmv(x)
 
 
-def spmm_dia(a, x, *, transpose: bool = False, accum_dtype=None):
+def spmm_dia(a, x, *, transpose: bool = False):
     if isinstance(a, CSR):
         a = dia_plan(a)
     if not isinstance(a, DiaMatrix):

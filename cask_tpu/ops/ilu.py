@@ -7,7 +7,8 @@ Two factorization paths:
 - **Device** (:func:`ilu0_device` / :class:`ILU0DevicePlan`): the
   Chow–Patel fine-grained parallel ILU (SISC 2015) — the factorization
   is recast as the fixed point of ``F(v)`` where every nonzero updates
-  independently per sweep, which is exactly the SPMD shape TPUs want.
+  independently per sweep, which is exactly the data-parallel shape a
+  wide accelerator wants.
   A host *symbolic* phase enumerates each nonzero's L·U dependency
   pairs once per pattern; the *numeric* sweeps are a jittable
   gather/segment-sum loop, so factorization joins the solver on device
@@ -89,7 +90,7 @@ class ILU0Factors:
 
         ``method='jacobi'`` replaces each exact triangular solve with
         ``sweeps`` Jacobi–Richardson sweeps (SpMV-class parallel ops —
-        the TPU-usable ILU apply, VERDICT r2 item 4); 'levels' is the
+        the usable ILU apply on a wide accelerator); 'levels' is the
         exact wavefront solve."""
         if method == "jacobi":
             lp, up = self._jacobi_plans()

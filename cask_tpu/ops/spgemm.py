@@ -70,54 +70,6 @@ class SpGEMMPlan:
             shape=self.shape,
         )
 
-    def bind_poh(self, a_data, *, nnz_b: Optional[int] = None,
-                 tile_slots: int = 8192) -> "PohNumeric":
-        """Bake A's values into a gather-free numeric phase.
-
-        The expansion map with A values bound is itself a sparse matrix
-        ``M (nnz_C × nnz_B)`` with ``M[out_id[t], src_b[t]] = a_data[src_a[t]]``,
-        and the numeric phase is the SpMV ``c_data = M @ b_data`` — which
-        the panel one-hot kernel runs at MXU speed instead of the ~65
-        Mnnz/s XLA gather path (VERDICT r1 item 3).  A's values are baked
-        at bind time; rebuild the binding when they change (B's values
-        stream freely — the AMG/Jacobian pipeline case, and for A·A pass
-        the same vector).
-        """
-        from cask_tpu.ops.pallas.poh_kernels import poh_plan
-
-        a_np = np.asarray(a_data)
-        nb = int(nnz_b if nnz_b is not None else self.src_b.max(initial=-1) + 1)
-        counts = np.bincount(self.out_id, minlength=self.nnz)
-        indptr = np.zeros(self.nnz + 1, dtype=np.int64)
-        np.cumsum(counts, out=indptr[1:])
-        m_csr = CSR(
-            data=a_np[self.src_a],
-            indices=self.src_b.astype(np.int32),
-            indptr=indptr.astype(np.int32),
-            shape=(self.nnz, nb),
-        )
-        return PohNumeric(plan=self, _poh=poh_plan(m_csr, tile_slots=tile_slots))
-
-
-@dataclasses.dataclass(frozen=True)
-class PohNumeric:
-    """SpGEMM numeric phase with A's values baked into a POH SpMV."""
-
-    plan: SpGEMMPlan
-    _poh: object
-
-    def device_put(self, device=None) -> "PohNumeric":
-        return dataclasses.replace(self, _poh=self._poh.device_put(device))
-
-    def __call__(self, b_data, *, precision: str = "split") -> CSR:
-        c_data = self._poh.spmv(jnp.asarray(b_data), precision=precision)
-        return CSR(
-            data=c_data,
-            indices=jnp.asarray(self.plan.c_indices),
-            indptr=jnp.asarray(self.plan.c_indptr),
-            shape=self.plan.shape,
-        )
-
 
 def spgemm_plan(a: CSR, b: CSR) -> SpGEMMPlan:
     """Symbolic phase: expansion map + output structure (host, numpy)."""
@@ -174,8 +126,7 @@ def spgemm_plan(a: CSR, b: CSR) -> SpGEMMPlan:
 
     # store slots sorted by output id: the segment_sum in numeric() then
     # legitimately uses indices_are_sorted=True (in A-entry order the ids
-    # revisit earlier C entries within a row — the hint would be wrong),
-    # and the slot runs per C entry become contiguous for bind_poh().
+    # revisit earlier C entries within a row — the hint would be wrong).
     src_a = src_a[order]
     src_b = src_b[order]
     out_id = out_id[order]

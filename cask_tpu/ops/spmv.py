@@ -3,13 +3,16 @@
 cask analog: the ``Spmv`` frontend object and its hardware kernels
 (SURVEY.md §2 R2/R5).  Dispatch:
 
-- ``method='xla'``   — gather + ``segment_sum`` formulation, pure XLA.
-  Always available, every format, every backend; the correctness
-  reference (BASELINE config 1 runs this at f64).
-- ``method='dia'``   — Pallas diagonal-window streaming kernel for
-  banded/stencil matrices (see :mod:`cask_tpu.ops.dia`): zero gathers,
-  the per-chip speed-of-light path.
-- ``method='auto'``  — xla here; the *tuned* auto path is
+- ``method='xla'``   — gather + ``segment_sum`` formulation.  Every
+  format, every platform; the correctness reference (BASELINE config 1
+  runs this at f64).
+- ``method='dia'``   — diagonal-packed shifted FMAs for banded/stencil
+  matrices (see :mod:`cask_tpu.ops.dia`): no gathers, no index stream.
+- ``method='bdia'``  — the block-diagonal twin for BSR/FEM matrices
+  (see :mod:`cask_tpu.ops.bdia`).
+- ``method='auto'``  — a cached DIA/BDIA plan where the structure
+  qualifies and :mod:`cask_tpu.utils.platform` says the plan wins on this
+  platform, the gather formulation otherwise.  The *tuned* path is
   :func:`cask_tpu.tune.tune`, which times variants per matrix and caches
   the winner by sparsity signature (cask's DSE analog).
 
@@ -27,6 +30,9 @@ import jax
 import jax.numpy as jnp
 
 from cask_tpu.formats.matrix import BSR, COO, CSR
+
+# f32 contractions stay f32: the GPU would otherwise run them in TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _accum_dtype(dtype, accum_dtype):
@@ -91,13 +97,15 @@ def _spmv_xla_bsr(a: BSR, x, transpose, accum_dtype):
     if not transpose:
         xp = jnp.zeros(pn, dtype=x.dtype).at[: a.shape[1]].set(x)
         xb = xp.reshape(a.n_block_cols, bc)[indices]  # (nb, bc) — one gather per block
-        part = jnp.einsum("kij,kj->ki", data, xb, preferred_element_type=acc)
+        part = jnp.einsum("kij,kj->ki", data, xb, preferred_element_type=acc,
+                          precision=_HIGHEST)
         yb = jax.ops.segment_sum(part, brow, num_segments=a.n_block_rows, indices_are_sorted=True)
         return yb.reshape(pm)[: a.shape[0]]
     else:
         xp = jnp.zeros(pm, dtype=x.dtype).at[: a.shape[0]].set(x)
         xb = xp.reshape(a.n_block_rows, br)[brow]  # (nb, br)
-        part = jnp.einsum("kij,ki->kj", data, xb, preferred_element_type=acc)
+        part = jnp.einsum("kij,ki->kj", data, xb, preferred_element_type=acc,
+                          precision=_HIGHEST)
         yb = jax.ops.segment_sum(part, indices, num_segments=a.n_block_cols)
         return yb.reshape(pn)[: a.shape[1]]
 
@@ -106,7 +114,7 @@ def transposed(a):
     """The transpose of ``a`` in its own format/plan family, built ONCE.
 
     CSR/COO/BSR re-encode via :func:`cask_tpu.formats.convert.transpose`;
-    plan types (DIA/BDIA/POH) rebuild through their ``transpose_plan``.
+    plan types (DIA/BDIA) rebuild through their ``transpose_plan``.
     Iterating algorithms that apply both A and Aᵀ (CGLS, LSQR-style
     loops) should call this once up front instead of passing
     ``transpose=True`` per application, which re-encodes at every trace.
@@ -115,7 +123,6 @@ def transposed(a):
     from cask_tpu.ops.bdia import transpose_plan as _bdia_t
     from cask_tpu.ops.dia import DiaMatrix
     from cask_tpu.ops.dia import transpose_plan as _dia_t
-    from cask_tpu.ops.pallas.poh_kernels import PohMatrix, poh_transpose_plan
 
     if isinstance(a, (CSR, COO, BSR)):
         from cask_tpu.formats.convert import transpose as _t
@@ -125,8 +132,6 @@ def transposed(a):
         return _dia_t(a)
     if isinstance(a, BdiaMatrix):
         return _bdia_t(a)
-    if isinstance(a, PohMatrix):
-        return poh_transpose_plan(a)
     raise TypeError(f"cannot transpose {type(a)}")
 
 
@@ -135,82 +140,77 @@ def transposed(a):
 # ---------------------------------------------------------------------------
 
 _PLAN_MISS = object()
-# test hook: force the BSR→BDIA auto route off-TPU (the plan then runs
-# its XLA formulation, so dispatch equality is checkable bit-exact)
-_AUTO_BSR_PLAN_FORCE = False
 
 
-def _bdia_auto_plan(a: BSR):
-    """Instance-memoized BDIA plan for the TPU BSR fast path.
+def _memo_plan(a, attr: str, build):
+    """Instance-memoized auto plan.
 
-    Cache policy: the plan is built ONCE per BSR instance (host-side
+    Cache policy: the plan is built ONCE per matrix instance (host-side
     numpy planning) and memoized on the object, so repeat ``spmv(a, x)``
     calls — and every trace of a jitted caller holding the same matrix —
     reuse it without re-planning.  ``None`` is memoized too: a matrix
-    whose block diagonals don't qualify (Pallas geometry, or >10 % of
-    entries spilling to the scalar remainder) never re-pays the
-    planning probe.  Never caches under a trace (host planning needs
-    concrete arrays; a tracer result would poison later calls).
+    whose diagonals don't qualify (>10 % of entries spilling to the
+    scalar remainder) never re-pays the planning probe.  Never caches
+    under a trace (host planning needs concrete arrays; a tracer result
+    would poison later calls).
     """
-    cached = getattr(a, "_bdia_auto_plan", _PLAN_MISS)
-    if cached is not _PLAN_MISS:
-        return cached
-    if isinstance(a.data, jax.core.Tracer):
-        return None  # can't host-plan under a trace; don't memoize
-    from cask_tpu.ops.bdia import bdia_plan
-    from cask_tpu.ops.pallas.bdia_kernels import bdia_fused_ok
-
-    plan = None
-    try:
-        p = bdia_plan(a, a.blocksize)
-        # gate on the fused one-shot kernel's FULL preconditions (halo
-        # slab + seg128 VMEM scratch), same as DistSpmv's auto interior
-        # resolution — bdia_pallas_ok alone admits wide-band plans whose
-        # fused call raises on TPU (ADVICE r4 medium)
-        if bdia_fused_ok(p) and \
-                p.rem_data.shape[0] <= 0.1 * max(a.nnz, 1):
-            plan = p
-    except Exception:  # planning failure = not profitable, use XLA
-        plan = None
-    object.__setattr__(a, "_bdia_auto_plan", plan)
-    return plan
-
-
-def _dia_auto_plan(a: CSR):
-    """Instance-memoized DIA plan for the TPU CSR fast path (same cache
-    policy as :func:`_bdia_auto_plan`: built once per instance, misses
-    memoized, never planned under a trace)."""
-    cached = getattr(a, "_dia_auto_plan", _PLAN_MISS)
+    cached = getattr(a, attr, _PLAN_MISS)
     if cached is not _PLAN_MISS:
         return cached
     if isinstance(a.data, jax.core.Tracer):
         return None
+    plan = build(a)
+    object.__setattr__(a, attr, plan)
+    return plan
+
+
+def _build_bdia(a: BSR):
+    from cask_tpu.ops.bdia import bdia_plan
+
+    p = bdia_plan(a, a.blocksize)
+    stored = max(a.nnz, 1)
+    if p.vals.size <= 2 * stored and p.rem_data.shape[0] <= 0.1 * stored:
+        return p
+    return None
+
+
+def _build_dia(a: CSR):
     from cask_tpu.ops.dia import dia_plan, estimate_dia_traffic
 
-    plan = None
-    try:
-        if estimate_dia_traffic(a) is not None:
-            p = dia_plan(a)
-            if p.rem_data.shape[0] <= 0.1 * max(a.nnz, 1):
-                plan = p
-    except Exception:
-        plan = None
-    object.__setattr__(a, "_dia_auto_plan", plan)
-    return plan
+    if estimate_dia_traffic(a) is None:
+        return None
+    p = dia_plan(a)
+    return p if p.rem_data.shape[0] <= 0.1 * max(a.nnz, 1) else None
+
+
+def _bdia_auto_plan(a: BSR):
+    """The BDIA plan the BSR auto route uses, or None (memoized)."""
+    return _memo_plan(a, "_bdia_auto_plan", _build_bdia)
+
+
+def _dia_auto_plan(a: CSR):
+    """The DIA plan the banded-CSR auto route uses, or None (memoized)."""
+    return _memo_plan(a, "_dia_auto_plan", _build_dia)
+
+
+def auto_route(a, transpose: bool = False, accum_dtype=None):
+    """The plan ``method='auto'`` runs ``a`` through, or None for the
+    gather formulation: a DIA plan for banded CSR, a BDIA plan for BSR,
+    where :func:`cask_tpu.utils.platform.auto_plan` enables it."""
+    from cask_tpu.utils import platform
+
+    if transpose or accum_dtype is not None:
+        return None
+    if isinstance(a, CSR) and platform.auto_plan("dia"):
+        return _dia_auto_plan(a)
+    if isinstance(a, BSR) and platform.auto_plan("bdia"):
+        return _bdia_auto_plan(a)
+    return None
 
 
 def spmv(a, x, *, transpose: bool = False, method: str = "auto",
          accum_dtype: Optional[object] = None):
-    """``y = a @ x`` (or ``aᵀ @ x``).  See module docstring for methods.
-
-    On TPU, ``method='auto'`` routes through a cached fast-path plan
-    when the structure qualifies — a :class:`BSR` matrix through a BDIA
-    plan + the fused one-shot Pallas kernel, a banded :class:`CSR`
-    through a DIA plan (see :func:`_bdia_auto_plan` for the cache
-    policy) — so the obvious API call on the obvious input is the tuned
-    path (BASELINE north star), not the gather fallback.  Unstructured
-    matrices should go through :func:`cask_tpu.tune.tune`, which also
-    times the POH one-hot kernels."""
+    """``y = a @ x`` (or ``aᵀ @ x``).  See module docstring for methods."""
     x = jnp.asarray(x)
     if x.ndim != 1:
         raise ValueError(f"x must be 1-D, got shape {x.shape}")
@@ -221,7 +221,7 @@ def spmv(a, x, *, transpose: bool = False, method: str = "auto",
     if method == "dia":
         from cask_tpu.ops.dia import spmv_dia
 
-        return spmv_dia(a, x, transpose=transpose, accum_dtype=accum_dtype)
+        return spmv_dia(a, x, transpose=transpose)
     if method == "bdia":
         from cask_tpu.ops.bdia import bdia_plan
 
@@ -233,27 +233,15 @@ def spmv(a, x, *, transpose: bool = False, method: str = "auto",
     if method not in ("auto", "xla"):
         raise ValueError(f"unknown spmv method {method!r}")
 
+    if isinstance(a, (CSR, BSR)) and method == "auto":
+        plan = auto_route(a, transpose, accum_dtype)
+        if plan is not None:
+            return plan.spmv(x)
     if isinstance(a, CSR):
-        if method == "auto" and not transpose and accum_dtype is None:
-            from cask_tpu.utils.platform import on_tpu
-
-            if on_tpu() or _AUTO_BSR_PLAN_FORCE:
-                plan = _dia_auto_plan(a)
-                if plan is not None:
-                    from cask_tpu.ops.dia import spmv_dia
-
-                    return spmv_dia(plan, x)
         return _spmv_xla_csr(a, x, transpose, accum_dtype)
     if isinstance(a, COO):
         return _spmv_xla_coo(a, x, transpose, accum_dtype)
     if isinstance(a, BSR):
-        if method == "auto" and not transpose and accum_dtype is None:
-            from cask_tpu.utils.platform import on_tpu
-
-            if on_tpu() or _AUTO_BSR_PLAN_FORCE:
-                plan = _bdia_auto_plan(a)
-                if plan is not None:
-                    return plan.spmv(x)
         return _spmv_xla_bsr(a, x, transpose, accum_dtype)
     from cask_tpu.ops.bdia import BdiaMatrix
     from cask_tpu.ops.dia import DiaMatrix, spmv_dia
@@ -265,13 +253,5 @@ def spmv(a, x, *, transpose: bool = False, method: str = "auto",
             a = _bdia_t(a)  # one-time host rebuild; hold the plan to reuse
         return a.spmv(x)
     if isinstance(a, DiaMatrix):
-        return spmv_dia(a, x, transpose=transpose, accum_dtype=accum_dtype)
-    from cask_tpu.ops.pallas.poh_kernels import PohMatrix
-
-    if isinstance(a, PohMatrix):
-        if transpose:
-            from cask_tpu.ops.pallas.poh_kernels import poh_transpose_plan
-
-            a = poh_transpose_plan(a)  # one-time host repack; hold to reuse
-        return a.spmv(x)
+        return spmv_dia(a, x, transpose=transpose)
     raise TypeError(f"unsupported matrix type {type(a)}")

@@ -12,7 +12,6 @@ from cask_tpu.parallel.partition import (  # noqa: F401
     Coo2DPartition,
     CooPartition,
     DiaPartition,
-    PohPartition,
     fem_bdia_partition,
     fem_formula_bsr,
     partition_2d,
@@ -20,5 +19,4 @@ from cask_tpu.parallel.partition import (  # noqa: F401
     partition_coo,
     partition_dia,
     stencil_dia_partition,
-    partition_poh,
 )

@@ -154,22 +154,18 @@ def partition_coo(a: CSR, nshards: int, *, mloc: Optional[int] = None) -> CooPar
 
 
 def partition_dia(a: CSR, nshards: int, *, min_density: float = 0.10,
-                  max_diags: int = 256, max_halo: Optional[int] = None,
-                  align: int = 1) -> DiaPartition:
+                  max_diags: int = 256, max_halo: Optional[int] = None) -> DiaPartition:
     """Row-partition a banded CSR into per-shard diagonal slices.
 
     Diagonals whose |offset| exceeds ``max_halo`` (default ``mloc``) spill
     to the remainder — a halo wider than a whole shard would need
     multi-hop exchange, which the all-gather remainder already covers.
-
-    ``align``: round the per-shard row count up to this multiple (the
-    Pallas interior kernel needs 8192-row alignment).
     """
     m, n = a.shape
     if m != n:
         raise ValueError("DiaPartition requires a square matrix")
     P = nshards
-    mloc = _ceil_div(_ceil_div(m, P), align) * align
+    mloc = _ceil_div(m, P)
     max_halo = max_halo if max_halo is not None else mloc
 
     indptr = np.asarray(a.indptr, dtype=np.int64)
@@ -216,19 +212,19 @@ def partition_dia(a: CSR, nshards: int, *, min_density: float = 0.10,
 
 
 def stencil_dia_partition(nx: int, ny: Optional[int] = None, *, nshards: int,
-                          align: int = 8192, dtype=np.float32) -> DiaPartition:
+                          dtype=np.float32) -> DiaPartition:
     """Formulaic DiaPartition of the 5-point Laplacian — no CSR build.
 
-    The ≥10M-row config-5 class needs a partition plan every CI round
-    (VERDICT r1 item 7), but materializing the 50M-entry CSR first costs
+    The ≥10M-row config-5 class needs a partition plan every CI round,
+    but materializing the 50M-entry CSR first costs
     a minute of numpy; the stencil's diagonals are formulaic, so the
     sharded pack is written directly (bit-identical to
-    ``partition_dia(generate.stencil_2d(nx, ny), nshards, align=align)``,
+    ``partition_dia(generate.stencil_2d(nx, ny), nshards)``,
     covered by a small-size parity test)."""
     ny = ny or nx
     n = nx * ny
     P = nshards
-    mloc = _ceil_div(_ceil_div(n, P), align) * align
+    mloc = _ceil_div(n, P)
     offsets = tuple(sorted({-ny, -1, 0, 1, ny}))
     g = np.arange(P * mloc, dtype=np.int64)  # global row ids (padded)
     in_range = g < n
@@ -266,12 +262,12 @@ def stencil_dia_partition(nx: int, ny: Optional[int] = None, *, nshards: int,
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BdiaPartition:
-    """Block-row-partitioned BDIA pack + ring halo (the flagship
-    0.94-roofline block kernel running config 5, VERDICT r2 item 1).
+    """Block-row-partitioned BDIA pack + ring halo (the tuned-BSR block
+    path running config 5).
 
     Shard ``p`` owns block rows ``[p·nbloc, (p+1)·nbloc)`` of the global
-    block matrix as a shape-uniform BDIA pack (shared kept offsets, tile
-    geometry ``ts``/``T`` across shards; trailing shards zero-padded).
+    block matrix as a shape-uniform BDIA pack (shared kept offsets across
+    shards; trailing shards zero-padded).
     The halo is ``lo_b``/``hi_b`` *block* offsets of x exchanged with
     ring neighbors (``lo_b·bc`` / ``hi_b·bc`` scalar entries); interior
     compute reads only local x (structural-zero pads), so it has no data
@@ -290,14 +286,13 @@ class BdiaPartition:
     ring discipline, same as :func:`partition_dia`'s ``max_halo``).
     """
 
-    vals: jax.Array  # (P, br, T, npairs, TS, 128)
+    vals: jax.Array  # (P, br, npairs, nbloc)
     head_vals: jax.Array  # (P, br, npairs, max(lo_b, 1))
     tail_vals: jax.Array  # (P, br, npairs, max(hi_b, 1))
     remainder: Optional[CooPartition]
     block_offsets: Tuple[int, ...] = dataclasses.field(metadata=dict(static=True))
     shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
     blocksize: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-    ts: int = dataclasses.field(metadata=dict(static=True))
     nshards: int = dataclasses.field(metadata=dict(static=True))
     mloc: int = dataclasses.field(metadata=dict(static=True))  # scalar rows/shard
     nbloc: int = dataclasses.field(metadata=dict(static=True))  # block rows/shard
@@ -312,7 +307,7 @@ class BdiaPartition:
 
     @property
     def npairs(self) -> int:
-        return int(self.vals.shape[3])
+        return int(self.vals.shape[2])
 
     @property
     def pairs(self) -> Tuple[Tuple[int, int], ...]:
@@ -324,69 +319,40 @@ class BdiaPartition:
 
 
 def _bdia_edge_windows(vals: np.ndarray, kept: np.ndarray, bc: int,
-                       nbloc: int, ts: int, T: int):
+                       nbloc: int):
     """Host-extract the (head_vals, tail_vals) fixup windows from a
-    packed ``(P, br, T, npairs, TS, 128)`` vals array (zeroed where the
-    term is interior — see :class:`BdiaPartition`)."""
-    P, br = vals.shape[0], vals.shape[1]
-    npairs = vals.shape[3]
+    packed ``(P, br, npairs, nbloc)`` vals array (zeroed where the term
+    is interior — see :class:`BdiaPartition`)."""
+    P, br, npairs = vals.shape[:3]
     dtype = vals.dtype
     lo_b = int(-min(kept.min(), 0))
     hi_b = int(max(kept.max(), 0))
     offs_per_pair = np.repeat(kept, bc)  # d of pair j
     wl, wh = max(lo_b, 1), max(hi_b, 1)
-    t_head = min(_ceil_div(max(lo_b, 1), ts * 128), T)
-    head_flat = np.ascontiguousarray(
-        vals[:, :, :t_head].transpose(0, 1, 3, 2, 4, 5)
-    ).reshape(P, br, npairs, -1)
     head_vals = np.zeros((P, br, npairs, wl), dtype=dtype)
-    head_vals[..., :min(lo_b, head_flat.shape[-1])] = \
-        head_flat[..., :min(lo_b, head_flat.shape[-1])]
-    i_rng = np.arange(wl)
-    head_vals *= (i_rng[None, :] < -offs_per_pair[:, None]).astype(dtype)
+    w = min(lo_b, nbloc)
+    head_vals[..., :w] = vals[..., :w]
+    head_vals *= (np.arange(wl)[None, :] < -offs_per_pair[:, None]).astype(dtype)
 
-    t0_tail = max((nbloc - hi_b) // (ts * 128), 0) if hi_b else T - 1
-    tail_flat = np.ascontiguousarray(
-        vals[:, :, t0_tail:].transpose(0, 1, 3, 2, 4, 5)
-    ).reshape(P, br, npairs, -1)
     tail_vals = np.zeros((P, br, npairs, wh), dtype=dtype)
     if hi_b:
-        off0 = (nbloc - hi_b) - t0_tail * ts * 128
-        tail_vals[:] = tail_flat[..., off0 : off0 + hi_b]
-        ih_rng = np.arange(wh)
-        tail_vals *= (ih_rng[None, :] >= (hi_b - offs_per_pair)[:, None]
+        tail_vals[:] = vals[..., nbloc - hi_b : nbloc]
+        tail_vals *= (np.arange(wh)[None, :] >= (hi_b - offs_per_pair)[:, None]
                       ).astype(dtype)
     return head_vals, tail_vals
 
 
 def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None,
                    *, min_density: float = 0.10,
-                   max_block_diags: int = 64,
-                   align_b: int = 1) -> BdiaPartition:
+                   max_block_diags: int = 64) -> BdiaPartition:
     """Block-row-partition a BSR/CSR matrix into per-shard BDIA packs.
 
     Square blocks only (x is partitioned like the rows).  Kept block
     diagonals are chosen *globally* (one shape-uniform shard program);
     everything else — sparse block diagonals, blocks beyond the
     single-hop halo — spills to the scalar COO remainder.
-
-    ``align_b``: round the per-shard *block*-row count up to this
-    multiple (the BDIA mirror of ``partition_dia(align=8192)``).  The
-    fused Pallas interior (``DistSpmv(..., interior='fused')``) accepts
-    any shard size, but enters zero-copy — the shard's natural-order x
-    reshapes straight into the kernel with no pad pass — only when
-    ``nbloc`` is a multiple of its slab span, 128·slab_rows = **16384**
-    block rows; pass ``align_b=16384`` on configs-5-scale jobs.
-
-    Shard-size ceiling: the fused/resident interiors keep the shard's x
-    component segments resident in VMEM (~``4·bc·nbloc·br`` bytes at
-    f32), so shards beyond ~3M scalar rows (dof-4) fail
-    ``bdia_fused_ok`` and ``interior='auto'`` falls back to the slow
-    XLA interior — size the mesh so ``rows/nshards ≲ 3M``, not the
-    other way around.
     """
     from cask_tpu.formats.matrix import BSR
-    from cask_tpu.ops.bdia import _pick_ts
 
     if isinstance(a, CSR):
         if blocksize is None:
@@ -404,17 +370,7 @@ def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None,
         raise ValueError("partition_bdia requires a square matrix")
     P = nshards
     nbr = a.n_block_rows
-    nbloc = _ceil_div(_ceil_div(nbr, P), align_b) * align_b
-    if (P - 1) * nbloc >= nbr:
-        # align_b rounding left at least one shard 100% padding; the
-        # halo/fixup/remainder paths are untested for empty shards
-        # (ADVICE r4) — refuse with actionable guidance instead
-        raise ValueError(
-            f"align_b={align_b} rounds the shard size to {nbloc} block "
-            f"rows, but the matrix has only {nbr} block rows across "
-            f"{P} shards — shard {P - 1} would hold no real rows. "
-            f"Use a smaller align_b or fewer shards "
-            f"(need (P-1)*nbloc < nbr).")
+    nbloc = _ceil_div(nbr, P)
     mloc = nbloc * br
 
     indptr = np.asarray(a.indptr, dtype=np.int64)
@@ -435,35 +391,21 @@ def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None,
         kept = np.array([0], dtype=np.int64)
     in_dia = np.isin(d, kept)
 
-    lo_b = int(-min(kept.min(), 0))
-    hi_b = int(max(kept.max(), 0))
-    ts = _pick_ts(nbloc)
-    nb_pad = _ceil_div(nbloc, ts * 128) * ts * 128
-    T = nb_pad // (ts * 128)
-    nd = kept.size
-    npairs = nd * bc
-
-    vals = np.zeros((P, br, T, npairs, ts, 128), dtype=data.dtype)
+    npairs = kept.size * bc
+    vals = np.zeros((P, br, npairs, nbloc), dtype=data.dtype)
     kb = np.nonzero(in_dia)[0]
     if kb.size:
         i = ib[kb]
-        p_idx = i // nbloc
-        iloc = i % nbloc
         dpos = np.searchsorted(kept, d[kb])
-        t_idx = iloc // (ts * 128)
-        rem_i = iloc % (ts * 128)
-        s_idx, l_idx = rem_i // 128, rem_i % 128
         c_rng = np.arange(bc)
         vals[
-            p_idx[:, None],
+            (i // nbloc)[:, None],
             :,
-            t_idx[:, None],
             dpos[:, None] * bc + c_rng[None, :],
-            s_idx[:, None],
-            l_idx[:, None],
+            (i % nbloc)[:, None],
         ] = data[kb].transpose(0, 2, 1)
 
-    head_vals, tail_vals = _bdia_edge_windows(vals, kept, bc, nbloc, ts, T)
+    head_vals, tail_vals = _bdia_edge_windows(vals, kept, bc, nbloc)
 
     # remainder: spilled blocks as scalar COO over the same row split
     rem = None
@@ -490,7 +432,6 @@ def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None,
         block_offsets=tuple(int(o) for o in kept),
         shape=(m, n),
         blocksize=(br, bc),
-        ts=ts,
         nshards=P,
         mloc=mloc,
         nbloc=nbloc,
@@ -498,12 +439,15 @@ def partition_bdia(a, nshards: int, blocksize: Optional[Tuple[int, int]] = None,
 
 
 def _fem_formula_val(i, dpos, r, c, dof: int):
-    """Deterministic pseudo-values for the formulaic FEM builder —
-    cheap, vectorized over block rows ``i``, identical in the direct
-    pack and the small-size reference BSR (parity-tested)."""
-    h = (i.astype(np.int64) * 1000003 + int(dpos) * 7919
+    """Deterministic pseudo-values for the formulaic FEM builders —
+    cheap, vectorized over block rows ``i`` (numpy or jax.numpy), and
+    identical in the direct packs, the device builder and the reference
+    BSR.  The product is reduced mod 2003 before it is formed, so 32-bit
+    device integers do not overflow, and the scale is a power of two, so
+    every value is exact in f32 and f64 alike."""
+    h = ((i % 2003) * (1000003 % 2003) + int(dpos) * 7919
          + int(r) * 211 + int(c) * 37) % 2003
-    return h.astype(np.float64) / 2003.0 - 0.5
+    return h / 2048.0 - 0.5
 
 
 def _fem_offset_mask(g, off: int, ny: int, nbr: int):
@@ -523,8 +467,7 @@ def _fem_offset_mask(g, off: int, ny: int, nbr: int):
 
 
 def fem_bdia_partition(nx: int, ny: Optional[int] = None, *, dof: int = 4,
-                       nshards: int, dtype=np.float32,
-                       align_b: int = 1) -> BdiaPartition:
+                       nshards: int, dtype=np.float32) -> BdiaPartition:
     """Formulaic BdiaPartition of the dof-block 5-point FEM matrix — no
     CSR/BSR materialization (the BDIA analog of
     :func:`stencil_dia_partition`; config-5 CI and the scaling job need
@@ -536,27 +479,20 @@ def fem_bdia_partition(nx: int, ny: Optional[int] = None, *, dof: int = 4,
     block gets ``+4·dof`` on its main diagonal so CG-class solves are
     well conditioned.
     """
-    from cask_tpu.ops.bdia import _pick_ts
-
     ny = ny or nx
     nbr = nx * ny
     P = nshards
-    # align_b=16384 makes the fused Pallas interior zero-copy (see
-    # partition_bdia's contract note)
-    nbloc = _ceil_div(_ceil_div(nbr, P), align_b) * align_b
+    nbloc = _ceil_div(nbr, P)
     offsets = tuple(sorted({-ny, -1, 0, 1, ny}))
     kept = np.asarray(offsets, dtype=np.int64)
     if np.abs(kept).max() > nbloc:
         raise ValueError(
             f"grid row length {ny} exceeds the {nbloc}-block shard — "
             "halo would be multi-hop; use partition_bdia for this shape")
-    ts = _pick_ts(nbloc)
-    T = _ceil_div(nbloc, ts * 128)
     npairs = len(offsets) * dof
 
     g = np.arange(P * nbloc, dtype=np.int64)
-    nb_pad = T * ts * 128  # per-shard padded block rows (tile aligned)
-    vflat = np.zeros((dof, npairs, P, nb_pad), dtype=dtype)
+    vals = np.zeros((dof, npairs, P * nbloc), dtype=dtype)
     for dpos, off in enumerate(offsets):
         ok = _fem_offset_mask(g, off, ny, nbr)
         for r in range(dof):
@@ -564,11 +500,10 @@ def fem_bdia_partition(nx: int, ny: Optional[int] = None, *, dof: int = 4,
                 v = _fem_formula_val(g, dpos, r, c, dof)
                 if off == 0 and r == c:
                     v = v + 4.0 * dof
-                plane = np.where(ok, v, 0.0).astype(dtype)
-                vflat[r, dpos * dof + c, :, :nbloc] = plane.reshape(P, nbloc)
+                vals[r, dpos * dof + c] = np.where(ok, v, 0.0)
     vals = np.ascontiguousarray(
-        vflat.reshape(dof, npairs, P, T, ts, 128).transpose(2, 0, 3, 1, 4, 5))
-    head_vals, tail_vals = _bdia_edge_windows(vals, kept, dof, nbloc, ts, T)
+        vals.reshape(dof, npairs, P, nbloc).transpose(2, 0, 1, 3))
+    head_vals, tail_vals = _bdia_edge_windows(vals, kept, dof, nbloc)
     n = nbr * dof
     return BdiaPartition(
         vals=jax.numpy.asarray(vals),
@@ -578,7 +513,6 @@ def fem_bdia_partition(nx: int, ny: Optional[int] = None, *, dof: int = 4,
         block_offsets=offsets,
         shape=(n, n),
         blocksize=(dof, dof),
-        ts=ts,
         nshards=P,
         mloc=nbloc * dof,
         nbloc=nbloc,
@@ -588,149 +522,32 @@ def fem_bdia_partition(nx: int, ny: Optional[int] = None, *, dof: int = 4,
 def fem_formula_bsr(nx: int, ny: Optional[int] = None, *, dof: int = 4,
                     dtype=np.float64):
     """The same matrix :func:`fem_bdia_partition` encodes, as a host BSR
-    (small-size parity reference — build cost O(nnz))."""
-    from cask_tpu.formats.convert import coo_from_arrays, coo_to_csr, csr_to_bsr
+    (the reference for the formulaic builders).  Built block-row-major
+    straight from the formula — O(nnz) numpy, no sort — so it stays
+    quick at millions of block rows."""
+    from cask_tpu.formats.matrix import BSR
 
     ny = ny or nx
     nbr = nx * ny
     offsets = tuple(sorted({-ny, -1, 0, 1, ny}))
     g = np.arange(nbr, dtype=np.int64)
-    rows, cols, vals = [], [], []
+    present = np.stack([_fem_offset_mask(g, off, ny, nbr) for off in offsets],
+                       axis=1)  # (nbr, 5): offsets ascending = columns sorted
+    cols = g[:, None] + np.asarray(offsets)[None, :]
+    blocks = np.empty((nbr, len(offsets), dof, dof), dtype=dtype)
     for dpos, off in enumerate(offsets):
-        ok = _fem_offset_mask(g, off, ny, nbr)
-        gi = g[ok]
         for r in range(dof):
             for c in range(dof):
-                v = _fem_formula_val(gi, dpos, r, c, dof)
+                v = _fem_formula_val(g, dpos, r, c, dof)
                 if off == 0 and r == c:
                     v = v + 4.0 * dof
-                rows.append(gi * dof + r)
-                cols.append((gi + off) * dof + c)
-                vals.append(v.astype(dtype))
+                blocks[:, dpos, r, c] = v
+    indptr = np.zeros(nbr + 1, dtype=np.int64)
+    np.cumsum(present.sum(axis=1), out=indptr[1:])
     n = nbr * dof
-    csr = coo_to_csr(coo_from_arrays(
-        np.concatenate(vals), np.concatenate(rows), np.concatenate(cols),
-        (n, n)))
-    return csr_to_bsr(csr, (dof, dof))
-
-
-@jax.tree_util.register_dataclass
-@dataclasses.dataclass(frozen=True)
-class PohPartition:
-    """Row-partitioned panel one-hot packs (unstructured matrices).
-
-    Per shard, two :class:`~cask_tpu.ops.pallas.poh_kernels.PohMatrix`
-    packs stacked over the leading mesh axis: *interior* (columns local
-    to the shard — computable before any collective lands) and
-    *exterior* (columns indexed into the all-gathered padded-global x).
-    Shards with fewer tiles are padded with zero tiles assigned to the
-    last row panel (structural-zero discipline: they accumulate 0).
-    """
-
-    int_vals: jax.Array  # (P, T_i, S, 128)
-    int_cloc: jax.Array
-    int_rloc: jax.Array
-    int_rloc_t: jax.Array  # (P, T_i, 128, S)
-    int_wlo: jax.Array  # (P, T_i)
-    int_whi: jax.Array
-    int_panel: jax.Array
-    int_first: jax.Array
-    int_last: jax.Array
-    ext_vals: jax.Array  # (P, T_e, S, 128)
-    ext_cloc: jax.Array
-    ext_rloc: jax.Array
-    ext_rloc_t: jax.Array
-    ext_wlo: jax.Array
-    ext_whi: jax.Array
-    ext_panel: jax.Array
-    ext_first: jax.Array
-    ext_last: jax.Array
-    shape: Tuple[int, int] = dataclasses.field(metadata=dict(static=True))
-    nshards: int = dataclasses.field(metadata=dict(static=True))
-    mloc: int = dataclasses.field(metadata=dict(static=True))
-    row_panel: int = dataclasses.field(metadata=dict(static=True))
-    col_window: int = dataclasses.field(metadata=dict(static=True))
-
-    def device_put(self, device=None) -> "PohPartition":
-        return jax.tree.map(lambda x: jax.device_put(x, device), self)
-
-
-def _stack_poh(plans):
-    """Stack same-geometry PohMatrix packs, padding tile counts."""
-    import numpy as _np
-
-    ntmax = max(p.ntiles for p in plans)
-    npanels = plans[0].n_panels
-
-    def pad(get, fill, dtype=None):
-        outs = []
-        for p in plans:
-            a = _np.asarray(get(p))
-            w = ntmax - a.shape[0]
-            if w:
-                padding = _np.full((w,) + a.shape[1:], fill,
-                                   dtype=dtype or a.dtype)
-                a = _np.concatenate([a, padding])
-            outs.append(a)
-        return jax.numpy.asarray(_np.stack(outs))
-
-    return dict(
-        vals=pad(lambda p: p.vals, 0),
-        cloc=pad(lambda p: p.cloc, 0),
-        rloc=pad(lambda p: p.rloc, 0),
-        rloc_t=pad(lambda p: p.rloc_t, 0),
-        wlo=pad(lambda p: p.wlo, 0),
-        whi=pad(lambda p: p.whi, 0),
-        panel=pad(lambda p: p.panel, npanels - 1),
-        first=pad(lambda p: p.first, 0),
-        last=pad(lambda p: p.last, 0),
-    )
-
-
-def partition_poh(a: CSR, nshards: int, *, row_panel: int = 4096,
-                  col_window: int = 1024,
-                  tile_slots: int = 4096) -> PohPartition:
-    """Row-partition an unstructured CSR into per-shard POH packs."""
-    from cask_tpu.formats.convert import coo_from_arrays, coo_to_csr
-    from cask_tpu.ops.pallas.poh_kernels import poh_plan
-
-    m, n = a.shape
-    P = nshards
-    mloc = _ceil_div(m, P)
-    if n > P * mloc:
-        raise ValueError(
-            f"partition_poh requires n ({n}) <= nshards*mloc ({P * mloc})")
-    indptr = np.asarray(a.indptr, dtype=np.int64)
-    indices = np.asarray(a.indices, dtype=np.int64)
-    data = np.asarray(a.data)
-    rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(indptr))
-    owner_row = rows // mloc
-    interior = (indices // mloc) == owner_row
-
-    ints, exts = [], []
-    for p in range(P):
-        mine = owner_row == p
-        mi = mine & interior
-        me = mine & ~interior
-        int_csr = coo_to_csr(coo_from_arrays(
-            data[mi], rows[mi] - p * mloc, indices[mi] - p * mloc,
-            (mloc, mloc)), sum_duplicates=False)
-        ext_csr = coo_to_csr(coo_from_arrays(
-            data[me], rows[me] - p * mloc, indices[me],
-            (mloc, P * mloc)), sum_duplicates=False)
-        kw = dict(row_panel=row_panel, col_window=col_window,
-                  tile_slots=tile_slots)
-        ints.append(poh_plan(int_csr, **kw))
-        exts.append(poh_plan(ext_csr, **kw))
-
-    si = _stack_poh(ints)
-    se = _stack_poh(exts)
-    return PohPartition(
-        **{f"int_{k}": v for k, v in si.items()},
-        **{f"ext_{k}": v for k, v in se.items()},
-        shape=(m, n), nshards=P, mloc=mloc,
-        row_panel=ints[0].row_panel, col_window=ints[0].col_window,
-    )
+    return BSR(data=blocks[present], indices=cols[present].astype(np.int32),
+               indptr=indptr.astype(np.int32), shape=(n, n),
+               blocksize=(dof, dof))
 
 
 @jax.tree_util.register_dataclass

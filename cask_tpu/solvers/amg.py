@@ -38,6 +38,7 @@ import numpy as np
 from cask_tpu.formats.convert import from_scipy, to_scipy
 from cask_tpu.formats.matrix import CSR
 from cask_tpu.ops.spmv import spmv
+from cask_tpu.utils import platform
 
 
 def _strength_graph(a_sp, theta: float):
@@ -62,8 +63,8 @@ def _aggregate(strength) -> np.ndarray:
     assigned; isolated nodes become singletons).  Routes through the
     native C++ core when available — the row-order greedy passes are a
     pure-Python O(n) loop otherwise, the dominant term of AMG setup at
-    1M rows (probe_amg2: 34 s total setup) — with this Python body as
-    the bit-identical fallback (parity-tested).
+    1M rows — with this Python body as the bit-identical fallback
+    (parity-tested).
     """
     try:
         from cask_tpu.native import binding
@@ -104,70 +105,75 @@ def _aggregate(strength) -> np.ndarray:
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class AmgLevel:
-    # operators are whatever plan the router picked: a DiaMatrix (banded
-    # levels), PohMatrix (unstructured levels), dense jax.Array (small
-    # levels), or device CSR (route="csr" — the gather fallback); the
-    # generic `spmv` dispatch serves them all.  Registered as a pytree
-    # so the WHOLE hierarchy can ride into jitted solves as an ARGUMENT
-    # instead of closure constants — probe_amg9 measured the
-    # closure-constant program compiling 11x slower at 16 call sites,
-    # and per-call retrace+hash of inline-constant programs is the
-    # ~25-47 s AMG "dispatch wall" of probe_amg6/8
+    # operators are whatever the router picked: a DiaMatrix (banded
+    # levels), device CSR (unstructured levels) or a dense jax.Array
+    # (small levels); the generic `spmv` dispatch serves them all.
+    # Registered as a pytree so the WHOLE hierarchy can ride into jitted
+    # solves as an ARGUMENT instead of closure constants (a closure
+    # re-hashes hundreds of MB of inline constants at every trace)
     a: object  # level operator (device)
     p: object  # prolongator (n_fine × n_coarse, device)
     r: object  # restriction = Pᵀ (device)
     dinv: jax.Array  # 1/diag(a) for Jacobi smoothing (device)
 
 
-def _apply_op(op, x, precision: str = "split"):
+def _apply_op(op, x):
     if isinstance(op, jax.Array):
-        return op @ x
+        return jnp.matmul(op, x, precision=jax.lax.Precision.HIGHEST)
     if isinstance(op, _FactoredApply):
-        return op(x, precision)
-    from cask_tpu.ops.pallas.poh_kernels import PohMatrix
-
-    if isinstance(op, PohMatrix):
-        return op.spmv(x, precision=precision)
+        return op(x)
     return spmv(op, x)
 
 
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
+class Aggregates:
+    """The tentative prolongator ``T`` (n × n_coarse, a single 1 in each
+    row) held as its aggregate map: ``T·xc = xc[agg]`` is one gather and
+    ``Tᵀ·r`` one ``segment_sum`` — no value stream at all."""
+
+    agg: jax.Array  # (n,) int32 aggregate id of each fine node
+    n_coarse: int = dataclasses.field(metadata=dict(static=True))
+
+    def prolong(self, xc):
+        return xc[self.agg]
+
+    def restrict(self, r):
+        return jax.ops.segment_sum(r, self.agg, num_segments=self.n_coarse)
+
+
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class _FactoredApply:
-    """Smoothed prolongator applied in FACTORED form (probe_amg3: the
-    materialized smoothed P/R as POH packs were the V-cycle's dominant
-    term — 11.5 ms of the 11 ms cycle at 1M rows, ~3 slots/fine-row
-    each way).  With ``P = (I − ω_s D⁻¹A)·T``:
+    """Smoothed prolongator applied in FACTORED form.  With
+    ``P = (I − ω_s D⁻¹A)·T``:
 
         P·xc = t − ω_s·D⁻¹·(A·t),          t = T·xc
         R·r  = Tᵀ·(r − ω_s·A·(D⁻¹·r))      (A symmetric)
 
-    so each application is one ONE-HOT tentative pack (exactly 1
-    slot/fine-row — the minimal POH) plus one application of the level
-    operator ``a``, which is already routed through the fast device
-    path (DIA at the fine level).  Strictly fewer slot-streams and the
-    A-apply rides the 0.9-class kernel instead of the ~4 Gnnz/s POH
-    floor."""
+    so each application is one gather or segment-sum over the aggregate
+    map plus one application of the level operator ``a``, which is
+    already routed through the fast device path (DIA at the fine level)
+    — instead of streaming a materialized smoothed P with ~3 entries per
+    fine row each way."""
 
     kind: str = dataclasses.field(metadata=dict(static=True))  # 'p' | 'r'
-    tent: object  # PohMatrix, (n × nc) one-hot
-    tent_t: object  # PohMatrix, (nc × n)
+    tent: Aggregates
     a: object  # routed level operator
     dinv: jax.Array
     omega_s: float = dataclasses.field(metadata=dict(static=True))
 
     @property
     def shape(self):
-        return self.tent.shape if self.kind == "p" else self.tent_t.shape
+        n, nc = self.tent.agg.shape[0], self.tent.n_coarse
+        return (n, nc) if self.kind == "p" else (nc, n)
 
-    def __call__(self, x, precision: str = "split"):
+    def __call__(self, x):
         w = jnp.asarray(self.omega_s, self.dinv.dtype)
         if self.kind == "p":
-            t = _apply_op(self.tent, x, precision)
-            return t - w * self.dinv * _apply_op(self.a, t, precision)
-        return _apply_op(self.tent_t,
-                         x - w * _apply_op(self.a, self.dinv * x, precision),
-                         precision)
+            t = self.tent.prolong(x)
+            return t - w * self.dinv * _apply_op(self.a, t)
+        return self.tent.restrict(x - w * _apply_op(self.a, self.dinv * x))
 
 
 @jax.tree_util.register_dataclass
@@ -179,16 +185,7 @@ class AmgPrecond:
     argument — ``jax.jit(lambda b, M: cg(op, b, M=M).x)(b, M)`` — and
     hold that one jitted callable for repeat solves.  Re-tracing a
     solve that closes over the hierarchy hashes hundreds of MB of
-    inline constants per call: that is probe_amg6/8's ~25-47 s
-    "dispatch wall" (probe_amg9/10 attribution).
-
-    ``poh_precision``: MXU rounding mode for every POH-routed operator
-    in the cycle (level operators and P/R packs).  ``'fast'`` runs the
-    one-hot matmuls in a single default-precision pass — bf16-rounded
-    products — which is admissible for a *preconditioner* (M need only
-    stay a fixed, roughly-SPD linear operator; CG sees the same M every
-    iteration) and roughly halves the POH share of the cycle.  Keep
-    ``'split'`` (exact f32) when using the cycle as a standalone solver.
+    inline constants per call.
     """
 
     levels: List[AmgLevel]
@@ -196,8 +193,6 @@ class AmgPrecond:
     omega: float = dataclasses.field(metadata=dict(static=True))
     nu_pre: int = dataclasses.field(metadata=dict(static=True))
     nu_post: int = dataclasses.field(metadata=dict(static=True))
-    poh_precision: str = dataclasses.field(
-        default="split", metadata=dict(static=True))
 
     @property
     def level_sizes(self) -> List[int]:
@@ -205,18 +200,17 @@ class AmgPrecond:
 
     def _cycle(self, b, lvl: int):
         if lvl == len(self.levels):
-            return self.coarse_inv @ b
+            return _apply_op(self.coarse_inv, b)
         level = self.levels[lvl]
         w = self.omega
-        prec = self.poh_precision
         x = w * level.dinv * b  # first sweep from x = 0
         for _ in range(self.nu_pre - 1):
-            x = x + w * level.dinv * (b - _apply_op(level.a, x, prec))
-        resid = b - _apply_op(level.a, x, prec)
-        xc = self._cycle(_apply_op(level.r, resid, prec), lvl + 1)
-        x = x + _apply_op(level.p, xc, prec)
+            x = x + w * level.dinv * (b - _apply_op(level.a, x))
+        resid = b - _apply_op(level.a, x)
+        xc = self._cycle(_apply_op(level.r, resid), lvl + 1)
+        x = x + _apply_op(level.p, xc)
         for _ in range(self.nu_post):
-            x = x + w * level.dinv * (b - _apply_op(level.a, x, prec))
+            x = x + w * level.dinv * (b - _apply_op(level.a, x))
         return x
 
     def apply(self, r):
@@ -230,58 +224,41 @@ def smoothed_aggregation_amg(a: CSR, *, theta: float = 0.08, omega: float = 2.0 
                              nu_pre: int = 1, nu_post: int = 1, smooth: bool = True,
                              max_levels: int = 12, coarse_size: int = 256,
                              dtype=None, route: str = "auto",
-                             dense_cutoff: int = 2048,
-                             poh_precision: str = "split") -> AmgPrecond:
+                             dense_cutoff: int = 2048) -> AmgPrecond:
     """Build a smoothed-aggregation AMG hierarchy for SPD ``a``.
 
     ``theta`` is the strength threshold (smaller ⇒ coarser aggregates);
     ``smooth=False`` gives plain (unsmoothed) aggregation — cheaper
     setup, slower convergence.  ``dtype`` overrides the apply precision
-    (e.g. ``jnp.float32`` to run the V-cycle at MXU-native precision
-    inside an f64 outer solve via :func:`~cask_tpu.solvers.ir_solve`).
+    (e.g. ``jnp.float32`` to run the V-cycle at half the bytes inside an
+    f64 outer solve via :func:`~cask_tpu.solvers.ir_solve`).
 
     ``route='auto'`` sends each level operator through the fastest
-    device path — DIA plans for banded levels, POH (gather-free one-hot
-    MXU) for unstructured ones, dense matmuls below ``dense_cutoff``
-    rows.  On TPU the csr_xla gather formulation runs at ~65 Mnnz/s
-    (PERF.md), which made the V-cycle apply-dominated exactly like exact
-    ILU (probe_amg1: 489 ms/cycle — VERDICT r2 item 7); routing is what
-    makes AMG the *usable* shipped alternative.  ``route='csr'`` keeps
-    the old behavior (reference/debug).
+    device path — DIA plans for banded levels where the platform's route
+    enables them (:mod:`cask_tpu.utils.platform`), device CSR for the
+    rest, dense matmuls below ``dense_cutoff`` rows — and applies the
+    smoothed prolongator in factored form over the aggregate map.
+    ``route='csr'`` keeps every operator a device CSR (reference/debug).
     """
     import scipy.sparse as sp
 
     a_sp = to_scipy(a).tocsr().astype(np.float64)
     levels: List[AmgLevel] = []
 
-    def put(mat_sp, row_panel: int = 4096, tile_slots: int = 2048):
+    def put(mat_sp):
         mat_sp = mat_sp.tocsr()
         apply_dt = np.dtype(dtype) if dtype is not None else mat_sp.dtype
-        if route == "auto":
-            m_, n_ = mat_sp.shape
-            if max(m_, n_) <= dense_cutoff:
-                return jnp.asarray(mat_sp.toarray().astype(apply_dt))
-            csr = from_scipy(mat_sp, format="csr")
-            if dtype is not None:
-                csr = csr.astype(dtype)
+        if route == "auto" and max(mat_sp.shape) <= dense_cutoff:
+            return jnp.asarray(mat_sp.toarray().astype(apply_dt))
+        csr = from_scipy(mat_sp, format="csr")
+        if dtype is not None:
+            csr = csr.astype(dtype)
+        if route == "auto" and platform.auto_plan("dia"):
             from cask_tpu.ops.dia import dia_plan, estimate_dia_traffic
 
-            est = estimate_dia_traffic(csr)
-            if est is not None:
+            if estimate_dia_traffic(csr) is not None:
                 return dia_plan(csr).device_put()
-            from cask_tpu.ops.pallas.poh_kernels import poh_plan
-
-            # tile size is pattern-dependent (measured): T=2048 is ~4x
-            # faster per slot on scattered patterns (probe_poh7's 50k
-            # power-law sweep) while the REGULAR perfect-fill tentative
-            # packs run ~10% better at T=8192 (probe_amg7 vs amg5) —
-            # callers pick per pack
-            return poh_plan(csr, tile_slots=tile_slots,
-                            row_panel=row_panel).device_put()
-        m = from_scipy(mat_sp, format="csr")
-        if dtype is not None:
-            m = m.astype(dtype)
-        return m.device_put()
+        return csr.device_put()
 
     while a_sp.shape[0] > coarse_size and len(levels) < max_levels:
         strength = _strength_graph(a_sp, theta)
@@ -312,16 +289,10 @@ def smoothed_aggregation_amg(a: CSR, *, theta: float = 0.08, omega: float = 2.0 
         dinv_dev = jnp.asarray(dinv.astype(apply_dtype))
         if smooth and route == "auto" and n > dense_cutoff:
             # factored application: the device never materializes the
-            # smoothed P/R — only the one-hot tentative packs (1
-            # slot/row) plus the already-routed level operator
-            # (_FactoredApply docstring; probe_amg3 decomposition)
-            # tall 1-slot/row tentative packs fill tiles poorly at the
-            # default 4096-row panels (each (panel, window) group pads
-            # to whole 8192-slot tiles); 16384-row panels quarter the
-            # group count (probe_amg4's ~2.2 ns/slot floor analysis)
-            fp = dict(tent=put(tent, row_panel=16384, tile_slots=8192),
-                      tent_t=put(tent.T.tocsr(), row_panel=16384,
-                                 tile_slots=8192),
+            # smoothed P/R — only the aggregate map plus the
+            # already-routed level operator (_FactoredApply docstring)
+            fp = dict(tent=Aggregates(agg=jnp.asarray(agg.astype(np.int32)),
+                                      n_coarse=n_agg),
                       a=a_dev, dinv=dinv_dev, omega_s=4.0 / 3.0 / rho)
             p_dev = _FactoredApply(kind="p", **fp)
             r_dev = _FactoredApply(kind="r", **fp)
@@ -335,5 +306,4 @@ def smoothed_aggregation_amg(a: CSR, *, theta: float = 0.08, omega: float = 2.0 
     if dtype is not None:
         coarse = coarse.astype(np.dtype(dtype))
     return AmgPrecond(levels=levels, coarse_inv=jnp.asarray(coarse),
-                      omega=omega, nu_pre=nu_pre, nu_post=nu_post,
-                      poh_precision=poh_precision)
+                      omega=omega, nu_pre=nu_pre, nu_post=nu_post)

@@ -5,11 +5,11 @@ cask analog: none directly (cask's solver path stops at CG, SURVEY.md §2
 R7) — but eigenvalue estimates feed the Chebyshev solver/preconditioner
 (:func:`cask_tpu.solvers.chebyshev_precond`) and AMG smoother scaling,
 and LOBPCG is the standard sparse eigensolver built from exactly the
-pieces this framework accelerates: one block SpMM per iteration (the
-MXU-friendly shape, k vectors amortizing the matrix stream) plus small
+pieces this framework accelerates: one block SpMM per iteration (k vectors amortizing the matrix stream)
+plus small
 dense (3k, 3k) Rayleigh–Ritz problems solved on device.
 
-TPU design notes: the whole iteration is one jitted ``lax.while_loop``
+Design notes: the whole iteration is one jitted ``lax.while_loop``
 with static (n, 3k) basis buffers; the basis is whitened each step via
 an eigendecomposition of the (3k, 3k) overlap matrix with *pseudo-inverse*
 handling of degenerate directions (the first iteration's empty P block,
@@ -23,12 +23,16 @@ already-computed ``A·S``.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
 
 from cask_tpu.ops.spmm import spmm
+
+# f32 products stay f32: the GPU would otherwise run them in TF32
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 _PENALTY = 1e30
 
@@ -103,8 +107,8 @@ def lobpcg(a, x0, *, largest: bool = False, tol: float = 1e-6,
         s = jnp.concatenate([xb, w, pb], axis=1)  # (n, 3k)
         a_s = jnp.concatenate([axb, aw, apb], axis=1)
 
-        o = s.T @ s
-        g = s.T @ a_s
+        o = _mm(s.T, s)
+        g = _mm(s.T, a_s)
         g = 0.5 * (g + g.T)
 
         # pseudo-inverse whitening of the basis: drop degenerate
@@ -113,7 +117,7 @@ def lobpcg(a, x0, *, largest: bool = False, tol: float = 1e-6,
         keep = ow > (3 * k) * eps * jnp.max(jnp.abs(ow))
         inv_sqrt = jnp.where(keep, 1.0 / jnp.sqrt(jnp.where(keep, ow, 1.0)), 0.0)
         wh = ov * inv_sqrt[None, :]  # columns: whitened basis coords
-        g2 = wh.T @ g @ wh
+        g2 = _mm(_mm(wh.T, g), wh)
         # dropped directions get Ritz values at ±∞ so they never enter
         # the selected window
         pen = jnp.where(keep, 0.0, -_PENALTY if largest else _PENALTY)
@@ -128,14 +132,14 @@ def lobpcg(a, x0, *, largest: bool = False, tol: float = 1e-6,
         else:
             yk = y[:, sel]
 
-        c = wh @ yk  # coords of new X in the S basis, (3k, k)
-        x_new = s @ c
-        ax_new = a_s @ c
+        c = _mm(wh, yk)  # coords of new X in the S basis, (3k, k)
+        x_new = _mm(s, c)
+        ax_new = _mm(a_s, c)
         # conjugate direction: the same Ritz combination minus its
         # X-block component, renormalized
         cp = c.at[:k, :].set(0.0)
-        p_new = s @ cp
-        ap_new = a_s @ cp
+        p_new = _mm(s, cp)
+        ap_new = _mm(a_s, cp)
         pn = jnp.linalg.norm(p_new, axis=0)
         scale = jnp.where(pn > 0, 1.0 / jnp.where(pn > 0, pn, 1.0), 0.0)
         p_new = p_new * scale[None, :]
@@ -150,7 +154,7 @@ def lobpcg(a, x0, *, largest: bool = False, tol: float = 1e-6,
     xb = xb[:, order]
     # axb inside the loop is reconstructed as linear combinations of A·S
     # and accumulates round-off; reapply the operator once at exit so the
-    # reported residual is genuine (ADVICE r1).
+    # reported residual is genuine.
     axb = op(xb)
     rn = jnp.linalg.norm(_residual(xb, axb, th), axis=0)
     return EigResult(theta=th, x=xb, iterations=it,

@@ -18,6 +18,7 @@ used) or any callable ``x -> A@x`` (e.g. a tuned kernel or a distributed
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, Optional
 
 import jax
@@ -25,6 +26,9 @@ import jax.numpy as jnp
 
 from cask_tpu.ops.spmm import spmm
 from cask_tpu.ops.spmv import spmv
+
+# f32 products stay f32: the GPU would otherwise run them in TF32
+_mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 
 @dataclasses.dataclass
@@ -92,9 +96,8 @@ def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     """Block CG (O'Leary 1980) for SPD ``a`` with ``s`` right-hand sides.
 
     ``b`` is (n, s).  All RHS share one Krylov iteration: the per-step
-    SpMV becomes an SpMM (:func:`cask_tpu.spmm` — the MXU-friendly shape
-    on TPU, amortizing the matrix stream over ``s`` vectors exactly like
-    the k=32 SpMM kernels), and the recurrence coefficients are tiny
+    SpMV becomes an SpMM (:func:`cask_tpu.spmm`, amortizing the matrix
+    stream over ``s`` vectors), and the recurrence coefficients are tiny
     (s, s) dense solves.  The shared block Krylov space also converges in
     fewer iterations than ``s`` independent CG runs whenever the RHS
     overlap spectrally.
@@ -122,7 +125,7 @@ def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     r0 = b - op(x0)
     z0 = M(r0)
     p0 = z0
-    s0 = r0.conj().T @ z0  # (s, s)
+    s0 = _mm(r0.conj().T, z0)  # (s, s)
 
     def _solve_small(g, rhs):
         return jnp.linalg.lstsq(g, rhs)[0]
@@ -134,13 +137,13 @@ def block_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     def body(st):
         x, r, p, s, k = st
         q = op(p)
-        alpha = _solve_small(p.conj().T @ q, s)
-        x = x + p @ alpha
-        r = r - q @ alpha
+        alpha = _solve_small(_mm(p.conj().T, q), s)
+        x = x + _mm(p, alpha)
+        r = r - _mm(q, alpha)
         z = M(r)
-        s_new = r.conj().T @ z
+        s_new = _mm(r.conj().T, z)
         beta = _solve_small(s, s_new)
-        p = z + p @ beta
+        p = z + _mm(p, beta)
         return (x, r, p, s_new, k + 1)
 
     x, r, _, _, k = jax.lax.while_loop(cond, body, (x0, r0, p0, s0, jnp.int32(0)))
@@ -209,7 +212,7 @@ def pipelined_cg(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0,
     x, k = st[0], st[10]
     # The recurrence residual drifts from b - A·x over long runs; pay one
     # SpMV outside the loop so the reported norm/converged flag reflect
-    # the *true* residual (ADVICE r1).
+    # the *true* residual.
     rn = jnp.linalg.norm(b - op(x))
     return SolveResult(x=x, iterations=k, residual_norm=rn, converged=rn <= target)
 
@@ -397,7 +400,7 @@ def cgls(a, b, *, at: Optional[Callable] = None, x0=None, tol: float = 1e-8,
         if isinstance(a, (CSR, COO, BSR)):
             # index-swap transpose: zero-cost per trace AND fully
             # traceable, so a jit-wrapped cgls works on these formats
-            # (transposed() does host-side re-encoding — ADVICE r2)
+            # (transposed() does host-side re-encoding)
             op = lambda v: spmv(a, v)  # noqa: E731
             opt = lambda v: spmv(a, v, transpose=True)  # noqa: E731
         else:
@@ -443,11 +446,11 @@ def ir_solve(a, b, *, work_dtype=jnp.float32, tol: float = 1e-12, atol: float = 
              inner_maxiter: int = 300, M: Optional[Callable] = None) -> SolveResult:
     """Mixed-precision iterative refinement: f64 accuracy at f32 speed.
 
-    The TPU dtype story (SURVEY.md §7 hard-part (e)): f64 multiplies are
-    emulated and slow, so the correction solve runs entirely in
-    ``work_dtype`` (f32 by default — MXU/VPU native), while the residual
-    ``r = b − A x`` is recomputed in the precision of ``b`` (f64 under
-    x64) each outer step.  Classic Wilkinson refinement: as long as the
+    The dtype story (SURVEY.md §7 hard-part (e)): SpMV is bound by the
+    bytes it streams, so the correction solve runs entirely in
+    ``work_dtype`` (f32 by default — half the bytes of f64), while the
+    residual ``r = b − A x`` is recomputed in the precision of ``b``
+    (f64 under x64) each outer step.  Classic Wilkinson refinement: as long as the
     inner solver contracts the error at all, the outer loop converges to
     working-precision accuracy of the *high*-precision system.  The
     whole nest (outer while_loop, inner Krylov while_loop) is one jitted
@@ -533,7 +536,7 @@ def gmres(a, b, *, x0=None, tol: float = 1e-8, atol: float = 0.0, restart: int =
         # solve min ‖beta e1 − H y‖ via normal equations on the small system
         e1 = jnp.zeros(m + 1, b.dtype).at[0].set(beta)
         y = jnp.linalg.lstsq(H, e1)[0]
-        x_new = x + V[:m].T @ y
+        x_new = x + _mm(V[:m].T, y)
         return x_new
 
     def cond(st):

@@ -12,11 +12,13 @@ import json
 import os
 import tempfile
 import threading
+from pathlib import Path
 from typing import Any, Dict, Optional
 
+# $CASK_TPU_TUNER_CACHE, else a file in the checkout (listed in .gitignore)
 _DEFAULT_PATH = os.environ.get(
-    "CASK_TPU_TUNER_CACHE", os.path.expanduser("~/.cache/cask_tpu/tuner.json")
-)
+    "CASK_TPU_TUNER_CACHE",
+    str(Path(__file__).resolve().parents[2] / ".tuner_cache" / "tuner.json"))
 
 
 class TunerCache:

@@ -1,6 +1,6 @@
 """Checkpoint/resume for expensive preprocessing (SURVEY.md §5).
 
-cask had none (offline single-FPGA jobs); the TPU framework's restart
+cask had none (offline single-FPGA jobs); this framework's restart
 story is: the tuner cache persists tuned variants (cask_tpu.tune.cache),
 and this module persists *factorizations and plans* (ILU(0), level
 schedules, partitions) as .npz so multi-host jobs resume without
@@ -91,7 +91,6 @@ def load_dia(path: str):
         rem_data=jnp.asarray(z["rem_data"]),
         rem_row=jnp.asarray(z["rem_row"]),
         rem_col=jnp.asarray(z["rem_col"]),
-        vals_t=None,
         offsets=tuple(meta["offsets"]),
         shape=tuple(meta["shape"]),
     )

@@ -88,46 +88,3 @@ def nan_guard(fn):
 
     return wrapped
 
-
-def check_poh(p, a=None) -> None:
-    """Validate a PohMatrix pack's structural invariants; if the source
-    CSR ``a`` is given, also verify the pack reconstructs it exactly."""
-    import numpy as np
-
-    m, n = p.shape
-    C, R, S = p.col_window, p.row_panel, p.slot_rows
-    cloc = np.asarray(p.cloc)
-    rloc = np.asarray(p.rloc)
-    vals = np.asarray(p.vals)
-    wlo = np.asarray(p.wlo)
-    panel = np.asarray(p.panel)
-    first = np.asarray(p.first)
-    last = np.asarray(p.last)
-    if not ((cloc >= 0).all() and (cloc < 2 * C).all()):
-        raise AssertionError("POH: local column out of the 2C window")
-    if not ((rloc >= 0).all() and (rloc < R).all()):
-        raise AssertionError("POH: local row out of the panel")
-    if (np.diff(panel) < 0).any():
-        raise AssertionError("POH: panel indices must be non-decreasing")
-    if not (np.asarray(p.rloc_t) == rloc.transpose(0, 2, 1)).all():
-        raise AssertionError("POH: rloc_t is not the transpose of rloc")
-    for I in range(p.n_panels):
-        sel = np.nonzero(panel == I)[0]
-        if sel.size == 0:
-            raise AssertionError(f"POH: panel {I} has no tiles (never written)")
-        if first[sel[0]] != 1 or last[sel[-1]] != 1:
-            raise AssertionError(f"POH: panel {I} first/last flags wrong")
-    if a is not None:
-        import scipy.sparse as sp
-
-        g_row = (panel[:, None, None] * R + rloc).reshape(-1)
-        g_col = (wlo[:, None, None] * C + cloc).reshape(-1)
-        v = vals.reshape(-1)
-        nz = v != 0
-        got = sp.coo_matrix(
-            (v[nz], (g_row[nz], g_col[nz])), shape=(p.n_panels * R, p.nseg * C)
-        ).tocsr()[:m, :n]
-        from cask_tpu.formats.convert import to_scipy
-
-        if (abs(got - to_scipy(a).tocsr())).max() != 0:
-            raise AssertionError("POH: pack does not reconstruct the matrix")

@@ -1,4 +1,4 @@
-"""Instance-directed tuning — cask's defining idea, TPU-style.
+"""Instance-directed tuning — cask's defining idea, JIT-style.
 
 cask ran a design-space exploration per matrix and compiled a bespoke
 FPGA bitstream (hours); here the tuner times JIT-compiled kernel
@@ -6,19 +6,17 @@ variants (seconds) and caches the winner by sparsity signature, so a
 second run — or a *different matrix with the same structure* — skips
 straight to the tuned kernel.
 
-Run:
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
     env PYTHONPATH=. python examples/autotune_bench.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 
 import numpy as np
 
@@ -37,7 +35,7 @@ def main():
         t = cask_tpu.tune(a, time_budget=3, force=True)
         print(f"{name:14s} → {t.variant:12s} {t.seconds_per_op:.3e} s/op")
 
-    print("\nroofline records (f32 SpMV):")
+    print("\nbench records (f32 SpMV):")
     for name, a in mats.items():
         bench_matrix(name, a)
 

@@ -4,19 +4,17 @@ cask analog: the iterative-solver demo (SURVEY.md §2 R7) — but where
 cask paid a PCIe round trip per iteration for host-side vector ops
 (§3.3), here the whole solve is one jitted device program.
 
-Run (CPU harness):
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
     env PYTHONPATH=. python examples/cg_solver.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

@@ -1,21 +1,19 @@
 """Row-partitioned SpMV with overlapped halo exchange on a device mesh.
 
-BASELINE config 5 at demo scale: on one host this runs on the fake
-8-device CPU mesh; on a pod slice the identical program rides ICI.
+BASELINE config 5 at demo scale over every visible device: the cards of
+one host (NVLink), or 8 virtual CPU devices with ``--cpu``.
 
-Run:
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
     env PYTHONPATH=. python examples/distributed_spmv.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 
 import numpy as np
 

@@ -2,18 +2,17 @@
 operator, then feeding the spectrum bounds into a Chebyshev-
 preconditioned CG solve.
 
-Run on CPU:  env PYTHONPATH=/root/repo /opt/venv/bin/python examples/eigenvalues.py
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
+    env PYTHONPATH=. python examples/eigenvalues.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

@@ -7,19 +7,17 @@ of any cask_tpu format or plan is a one-time host-side re-encode
 (``cask_tpu.transposed``), so the loop pays zero per-iteration
 transposition (cask lesson §3.3: no boundary crossing per iteration).
 
-Run (CPU harness):
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
     env PYTHONPATH=. python examples/least_squares.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

@@ -2,19 +2,17 @@
 plain CG vs Jacobi, block-Jacobi, Chebyshev-polynomial, host ILU(0) and
 device (Chow–Patel) ILU(0).
 
-Run (CPU harness):
-    env PYTHONPATH=/root/repo /opt/venv/bin/python examples/preconditioners.py
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
+    env PYTHONPATH=. python examples/preconditioners.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp

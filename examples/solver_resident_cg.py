@@ -1,34 +1,28 @@
-"""CG with the zero-copy solver-resident SpMV operator.
+"""CG over a DIA plan built once: ``solver_operator`` packs the banded
+matrix's diagonals, so each of the Krylov loop's hundreds of SpMVs is one
+fused shifted-FMA pass with no gathers and no index stream.
 
-The Krylov loop applies A hundreds of times; ``DiaOperator`` keeps every
-vector in the Pallas kernel's own layout so no per-iteration padding or
-format copies happen — on the dev TPU this path measures ~0.8 of the HBM
-roofline per SpMV (PERF.md).
-
-Run:
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
     env PYTHONPATH=. python examples/solver_resident_cg.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 
 import numpy as np
 
 import cask_tpu
-from cask_tpu.ops.dia import DiaOperator
 
 
 def main():
     a = cask_tpu.generate.stencil_2d(95)  # SPD Poisson, 9025 unknowns
-    op = DiaOperator(a)
-    print(f"operator mode: {op.mode} (offsets {op.dia.offsets})")
+    op = cask_tpu.solver_operator(a)
+    print(f"DIA plan: offsets {op.dia.offsets}")
 
     rng = np.random.default_rng(0)
     b = rng.standard_normal(a.shape[0])

@@ -1,31 +1,28 @@
-"""Unstructured SpMV on TPU: the panel one-hot kernel + device ILU.
+"""Unstructured SpMV: a power-law graph matrix through the gather
+formulation and the autotuner.
 
-TPUs have no deep-gather hardware, so classic CSR SpMV on a power-law
-graph matrix crawls through XLA's scalar gathers (~65 Mnnz/s measured on
-v5e).  The panel one-hot (POH) kernel synthesizes gather AND scatter on
-the MXU — one-hot matmuls built from iota compares — reaching
-0.94 Gnnz/s near-f32 / 1.98 Gnnz/s bf16-rounded (PERF.md).
+A scale-free pattern has no band for the DIA plans to pack, so SpMV is
+one gather of x per stored entry plus a ``segment_sum`` — work the
+GPU's hardware gather serves directly.
 
-Run CPU-side (interpret mode):
-    env PYTHONPATH=/root/repo /opt/venv/bin/python examples/unstructured_spmv.py
+Run on the accelerator JAX finds (add ``--cpu`` to rehearse on the CPU):
+    env PYTHONPATH=. python examples/unstructured_spmv.py
 """
 
-import os
+import sys
 
-os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
 import jax
 
-from cask_tpu.utils.platform import on_tpu
+from cask_tpu.utils import platform
 
-if not on_tpu():
-    jax.config.update("jax_platforms", "cpu")
+platform.start(sys.argv)
 
 import jax.numpy as jnp
 import numpy as np
 
+import cask_tpu
 from cask_tpu.formats.convert import to_scipy
 from cask_tpu.formats.generate import power_law
-from cask_tpu.ops.pallas.poh_kernels import poh_plan
 from cask_tpu.tune import tune
 
 
@@ -33,18 +30,13 @@ def main():
     a = power_law(20_000, avg_degree=15, dtype=np.float32, seed=1)
     x = np.random.default_rng(0).standard_normal(a.shape[1]).astype(np.float32)
 
-    # direct: plan once (host), apply many times (device)
-    p = poh_plan(a).device_put()
-    y = p.spmv(jnp.asarray(x))                      # near-f32 ("split")
-    y_fast = p.spmv(jnp.asarray(x), precision="fast")  # 2x faster, ~2e-3
+    dev = a.device_put()
+    y = jax.jit(cask_tpu.spmv)(dev, jnp.asarray(x))
     ref = to_scipy(a) @ x
-    print(f"poh split relerr: {np.abs(np.asarray(y) - ref).max() / np.abs(ref).max():.2e}")
-    print(f"poh fast  relerr: {np.abs(np.asarray(y_fast) - ref).max() / np.abs(ref).max():.2e}")
-    print(f"pack fill: {p.fill():.1%} over {p.ntiles} tiles")
+    print(f"csr relerr: {np.abs(np.asarray(y) - ref).max() / np.abs(ref).max():.2e}")
 
-    # or let the autotuner pick (it enumerates poh variants for
-    # unstructured f32 matrices and caches the winner by signature)
-    t = tune(a, include_pallas=True, time_budget=2)
+    # or let the autotuner pick (it caches the winner by signature)
+    t = tune(a, time_budget=2)
     print(f"tuned variant: {t.variant}")
 
 

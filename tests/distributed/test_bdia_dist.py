@@ -1,6 +1,6 @@
-"""Distributed BDIA: the flagship block kernel on the ring-halo path
-(VERDICT r2 item 1 — BASELINE config 5 × the "tuned BSR SpMV" north
-star).  Fake 8-device CPU mesh; Pallas interior runs in interpret mode.
+"""Distributed BDIA: the block-diagonal path on the ring halo
+(BASELINE config 5 × the "tuned BSR SpMV" north star), on 8 virtual CPU
+devices.
 """
 
 import jax.numpy as jnp
@@ -97,38 +97,42 @@ class TestBdiaRemainderAndHalo:
 
 
 class TestBdiaPallasInterior:
+    """The shard interior is the BDIA formulation on zero-padded local x;
+    the halo and the remainder complete it."""
+
     def test_pallas_interior_matches_xla(self):
+        # distributed result equals the single-device plan
+        from cask_tpu.ops.bdia import bdia_plan
+
         a = _fem(24, seed=6)
         p = 4
         plan = partition_bdia(a, p)
         x = np.random.default_rng(6).standard_normal(a.shape[1])
-        y_x = DistSpmv(plan, row_mesh(p))(x)
-        y_p = DistSpmv(plan, row_mesh(p), interior="pallas")(x)
-        np.testing.assert_allclose(np.asarray(y_p), np.asarray(y_x),
+        y = DistSpmv(plan, row_mesh(p))(x)
+        np.testing.assert_allclose(np.asarray(y),
+                                   np.asarray(bdia_plan(a).spmv(x)),
                                    rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(y_p), to_scipy(a) @ x,
+        np.testing.assert_allclose(np.asarray(y), to_scipy(a) @ x,
                                    rtol=1e-10, atol=1e-10)
 
     def test_fused_interior_matches_xla(self):
-        # VERDICT r3 item 2: the flagship fused kernel as the shard
-        # interior, directly on natural-order shard x (no relayout
-        # wrappers).  Interpret-mode f64 is exact — 1e-12 parity.
+        # natural layout: the shard view holds its block rows' planes
+        from cask_tpu.parallel.dist import _bdia_shard_matrix
+
         a = _fem(24, seed=16)
         p = 4
         plan = partition_bdia(a, p)
-        x = np.random.default_rng(16).standard_normal(a.shape[1])
-        y_x = DistSpmv(plan, row_mesh(p), interior="xla")(x)
-        y_f = DistSpmv(plan, row_mesh(p), interior="fused")(x)
-        np.testing.assert_allclose(np.asarray(y_f), np.asarray(y_x),
-                                   rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(np.asarray(y_f), to_scipy(a) @ x,
-                                   rtol=1e-10, atol=1e-10)
+        assert plan.vals.shape == (p, 4, plan.npairs, plan.nbloc)
+        local = _bdia_shard_matrix(
+            type(plan)(**{**plan.__dict__, "vals": plan.vals[1:2]}))
+        assert local.shape == (plan.mloc, plan.mloc)
+        assert local.vals.shape == (4, plan.npairs, plan.nbloc)
 
     def test_fused_interior_remainder_and_uneven(self):
         # spilled blocks + a last shard shorter than nbloc both ride the
-        # fused interior unchanged (remainder is collective-side; pads
-        # are structural zeros)
-        import scipy.sparse as sp
+        # interior unchanged (remainder is collective-side; pads are
+        # structural zeros)
+        from cask_tpu.formats.convert import csr_to_bsr
 
         a = _fem(15, seed=17)  # 225 block rows: uneven at p=4
         s = to_scipy(a).tolil()
@@ -138,34 +142,31 @@ class TestBdiaPallasInterior:
             bi = int(rng.integers(0, n // 4 - 1))
             bj = int(rng.integers(0, n // 4 - 1))
             s[bi * 4 : bi * 4 + 4, bj * 4 : bj * 4 + 4] = rng.standard_normal((4, 4))
-        from cask_tpu.formats.convert import csr_to_bsr
-
         bsr = csr_to_bsr(from_scipy(s.tocsr()), (4, 4))
         plan = partition_bdia(bsr, 4)
         assert plan.remainder is not None
-        op = DistSpmv(plan, row_mesh(4), interior="fused")
+        op = DistSpmv(plan, row_mesh(4))
         x = rng.standard_normal(n)
         np.testing.assert_allclose(np.asarray(op(x)), s.tocsr() @ x,
                                    rtol=1e-12, atol=1e-12)
 
     def test_fused_interior_align_contract(self):
-        # align_b rounds the shard up (zero-copy contract surface);
-        # parity must hold through the extra pad rows
+        # shard size is ceil(nbr / P): parity holds through the pad rows
         a = _fem(20, seed=18)  # 400 block rows
-        plan = partition_bdia(a, 4, align_b=128)
-        assert plan.nbloc % 128 == 0
-        op = DistSpmv(plan, row_mesh(4), interior="fused")
+        plan = partition_bdia(a, 3)
+        assert plan.nbloc == 134
+        op = DistSpmv(plan, row_mesh(3))
         x = np.random.default_rng(18).standard_normal(a.shape[1])
         np.testing.assert_allclose(np.asarray(op(x)), to_scipy(a) @ x,
                                    rtol=1e-12, atol=1e-12)
 
-    def test_auto_interior_resolves_off_tpu(self):
-        # CPU harness: 'auto' must settle on the XLA interior (fused is
-        # a TPU default), and the resolved choice is introspectable
+    def test_no_interior_option(self):
+        # no option selects an interior any more
         a = _fem(16, seed=19)
         plan = partition_bdia(a, 4)
-        op = DistSpmv(plan, row_mesh(4))
-        assert op.interior == "xla"
+        for kw in ({"interior": "fused"}, {"mm_interior": "slab"}):
+            with pytest.raises(TypeError):
+                DistSpmv(plan, row_mesh(4), **kw)
 
     def test_overlap_ab_matches(self):
         a = _fem(20, seed=7)
@@ -212,7 +213,7 @@ class TestFormulaicFemPartition:
         p1 = partition_bdia(bsr, 4)
         p2 = fem_bdia_partition(20, dof=4, nshards=4, dtype=np.float32)
         assert p1.block_offsets == p2.block_offsets
-        assert (p1.nbloc, p1.ts, p1.mloc) == (p2.nbloc, p2.ts, p2.mloc)
+        assert (p1.nbloc, p1.mloc) == (p2.nbloc, p2.mloc)
         np.testing.assert_array_equal(np.asarray(p1.vals), np.asarray(p2.vals))
         np.testing.assert_array_equal(np.asarray(p1.head_vals),
                                       np.asarray(p2.head_vals))
@@ -298,20 +299,21 @@ class TestBdia1MParity:
         op = DistSpmv(plan, row_mesh(8))
         x = np.random.default_rng(9).standard_normal(a.shape[1]).astype(np.float32)
         y = np.asarray(op(x))
-        ref = np.asarray(bdia_plan(a)._spmv_xla(jnp.asarray(x)))
+        ref = np.asarray(bdia_plan(a).spmv(jnp.asarray(x)))
         err = np.abs(y - ref).max() / np.abs(ref).max()
         assert err < 1e-5
 
 
 class TestFormulaicAlignB:
     def test_fem_partition_align_b_parity(self):
+        # uneven shards (400 block rows over 3) through the formulaic
+        # builder
         from cask_tpu.parallel import fem_bdia_partition, fem_formula_bsr
 
         bsr = fem_formula_bsr(20, dof=2, dtype=np.float64)
-        plan = fem_bdia_partition(20, dof=2, nshards=4, dtype=np.float64,
-                                  align_b=128)
-        assert plan.nbloc % 128 == 0
-        op = DistSpmv(plan, row_mesh(4), interior="fused")
+        plan = fem_bdia_partition(20, dof=2, nshards=3, dtype=np.float64)
+        assert plan.nbloc == 134
+        op = DistSpmv(plan, row_mesh(3))
         x = np.random.default_rng(21).standard_normal(bsr.shape[1])
         np.testing.assert_allclose(np.asarray(op(x)), to_scipy(bsr) @ x,
                                    rtol=1e-12, atol=1e-12)
@@ -319,62 +321,53 @@ class TestFormulaicAlignB:
 
 class TestShardMetaAndAlignGuards:
     def test_shard_meta_remainder_dtypes_match_plan(self):
-        # ADVICE r4: the metadata-only shard view must carry the same
-        # int32 index dtypes as a real plan's empty remainder
+        # the shard view carries the same int32 index dtypes as a real
+        # plan's empty remainder
         from cask_tpu.ops.bdia import bdia_plan
-        from cask_tpu.parallel.dist import _bdia_shard_meta
+        from cask_tpu.parallel.dist import _bdia_shard_matrix
 
         a = _fem(16, seed=9)
         plan = partition_bdia(a, 4)
-        meta = _bdia_shard_meta(plan)
-        assert meta.rem_row.dtype == np.int32
-        assert meta.rem_col.dtype == np.int32
-        assert meta.rem_data.dtype == np.float32
-        # same dtypes a real plan uses for an empty remainder
+        local = _bdia_shard_matrix(
+            type(plan)(**{**plan.__dict__, "vals": plan.vals[:1]}))
         ref = bdia_plan(_fem(8, seed=9), (4, 4))
         assert ref.rem_data.shape[0] == 0
-        assert np.dtype(meta.rem_row.dtype) == np.dtype(ref.rem_row.dtype)
-        assert np.dtype(meta.rem_col.dtype) == np.dtype(ref.rem_col.dtype)
+        assert np.dtype(local.rem_row.dtype) == np.dtype(ref.rem_row.dtype) == np.int32
+        assert np.dtype(local.rem_col.dtype) == np.dtype(ref.rem_col.dtype) == np.int32
 
     def test_align_b_empty_shard_rejected(self):
-        # ADVICE r4: align_b rounding that leaves an all-padding shard
-        # must fail loudly, not run untested halo/fixup paths
-        a = _fem(16, seed=10)  # 256 block rows
-        with pytest.raises(ValueError, match="no real rows"):
-            partition_bdia(a, 4, align_b=128)  # nbloc=128, 3*128 >= 256
-        # the largest non-degenerate rounding still partitions correctly
-        plan = partition_bdia(a, 4, align_b=64)  # nbloc=64, 3*64 < 256
-        op = DistSpmv(plan, row_mesh(4))
-        x = np.random.default_rng(10).standard_normal(a.shape[1])
-        np.testing.assert_allclose(np.asarray(op(x)), to_scipy(a) @ x,
-                                   rtol=1e-12, atol=1e-12)
+        # a halo wider than a shard is refused by the formulaic builder
+        from cask_tpu.parallel import fem_bdia_partition
+
+        with pytest.raises(ValueError, match="multi-hop"):
+            fem_bdia_partition(16, dof=2, nshards=32)  # 8-block shards, ny=16
+        plan = partition_bdia(_fem(16, seed=10), 4)
+        assert plan.nbloc == 64
 
 
 class TestSlabMmInterior:
-    """Distributed wide-k SpMM through the MXU slab X-ring interior
-    (exact precision): must match scipy and the XLA interior on the
-    fake mesh, remainder and uneven shards included."""
+    """Distributed wide-k SpMM through the BDIA interior: must match
+    scipy and the single-device plan, remainder and uneven shards
+    included."""
 
     @pytest.mark.parametrize("p", [2, 4])
     def test_matches_scipy_and_xla_interior(self, p):
+        from cask_tpu.ops.bdia import bdia_plan
+
         a = _fem(24, dtype=np.float32)
         plan = partition_bdia(a, p)
-        op_s = DistSpmv(plan, row_mesh(p), mm_interior="slab")
-        assert op_s.mm_interior == "slab"
-        op_x = DistSpmv(plan, row_mesh(p), mm_interior="xla")
+        op = DistSpmv(plan, row_mesh(p))
         X = np.random.default_rng(51).standard_normal(
             (a.shape[1], 96)).astype(np.float32)
-        Ys = np.asarray(op_s(X))
-        Yx = np.asarray(op_x(X))
+        Y = np.asarray(op(X))
         ref = to_scipy(a) @ X
-        np.testing.assert_allclose(Ys, ref, rtol=2e-5, atol=2e-4)
-        np.testing.assert_allclose(Ys, Yx, rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(Y, ref, rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(Y, np.asarray(bdia_plan(a).spmm(X)),
+                                   rtol=2e-5, atol=2e-4)
 
     def test_remainder_spills_still_exact(self):
         # far off-band blocks in the COO remainder ride alongside
-        import scipy.sparse as sp
-
-        from cask_tpu.formats.convert import csr_to_bsr, from_scipy
+        from cask_tpu.formats.convert import csr_to_bsr
 
         a = _fem(16, dtype=np.float64, seed=7)
         s = to_scipy(a).tolil()
@@ -387,31 +380,33 @@ class TestSlabMmInterior:
                 rng.standard_normal((4, 4))
         b = csr_to_bsr(from_scipy(s.tocsr()), (4, 4))
         plan = partition_bdia(b, 4)
-        op = DistSpmv(plan, row_mesh(4), mm_interior="slab")
+        op = DistSpmv(plan, row_mesh(4))
         X = rng.standard_normal((b.shape[1], 80))
         np.testing.assert_allclose(np.asarray(op(X)), s.tocsr() @ X,
                                    rtol=1e-10, atol=1e-10)
 
     def test_slab_rejected_for_dia_plan(self):
+        # the DIA partition serves wide k through its own SpMM body
         from cask_tpu.formats.generate import stencil_2d
         from cask_tpu.parallel import partition_dia
 
         a = stencil_2d(24)
-        plan = partition_dia(a, 4)
-        with pytest.raises(ValueError, match="BdiaPartition"):
-            DistSpmv(plan, row_mesh(4), mm_interior="slab")
+        op = DistSpmv(partition_dia(a, 4), row_mesh(4))
+        X = np.random.default_rng(52).standard_normal((a.shape[1], 96))
+        np.testing.assert_allclose(np.asarray(op(X)), to_scipy(a) @ X,
+                                   rtol=1e-12, atol=1e-12)
 
 
 class TestPaddedOpWith:
     def test_operands_as_arguments_match(self):
         # jitted loops thread op.operands through padded_op_with: same
-        # results as the closure path, plan/slabs traced not constant
+        # results as the closure path, plan traced not constant
         import jax
 
         a = _fem(16, seed=21, dtype=np.float32)
         plan = partition_bdia(a, 4)
-        op = DistSpmv(plan, row_mesh(4), mm_interior="slab")
-        assert len(op.operands) == 2  # plan + shard slabs
+        op = DistSpmv(plan, row_mesh(4))
+        assert len(op.operands) == 1
         X = np.random.default_rng(21).standard_normal(
             (a.shape[1], 96)).astype(np.float32)
         Xp = op.padded(X)
@@ -423,11 +418,8 @@ class TestPaddedOpWith:
         y1 = np.asarray(f(op.operands, Xp))
         y2 = np.asarray(op.padded_op(Xp))
         np.testing.assert_array_equal(y1, y2)
-        # spmv path too (single operand tuple)
-        op_v = DistSpmv(plan, row_mesh(4))
         x = np.random.default_rng(22).standard_normal(
             a.shape[1]).astype(np.float32)
-        xp = op_v.padded(x)
+        xp = op.padded(x)
         np.testing.assert_array_equal(
-            np.asarray(op_v.padded_op_with(op_v.operands, xp)),
-            np.asarray(op_v.padded_op(xp)))
+            np.asarray(f(op.operands, xp)), np.asarray(op.padded_op(xp)))

@@ -56,7 +56,7 @@ def test_all_formats_spmv_agree(seed):
         np.testing.assert_allclose(y, ref, rtol=1e-11, atol=1e-11)
     if a.shape[0] == a.shape[1]:
         d = dia_plan(a)
-        np.testing.assert_allclose(np.asarray(d._spmv_xla(x)), ref, rtol=1e-11, atol=1e-11)
+        np.testing.assert_allclose(np.asarray(d.spmv(x)), ref, rtol=1e-11, atol=1e-11)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -675,11 +675,11 @@ class TestSSOR:
 
 
 class TestAmgRouting:
-    """Level-operator routing (VERDICT r2 item 7): csr_xla gathers made
-    the V-cycle apply-dominated on TPU; route='auto' sends levels
-    through DIA / POH / dense instead."""
+    """Level-operator routing: route='auto' sends banded levels through
+    DIA plans where the platform enables them, unstructured levels
+    through device CSR, small levels dense."""
 
-    def test_routed_matches_csr_on_banded(self):
+    def test_routed_matches_csr_on_banded(self, auto_plans):
         from cask_tpu.ops.dia import DiaMatrix
         from cask_tpu.solvers import smoothed_aggregation_amg
 
@@ -703,12 +703,12 @@ class TestAmgRouting:
         ref = np.asarray(smoothed_aggregation_amg(a, route="csr")(r))
         np.testing.assert_allclose(np.asarray(M(r)), ref, rtol=1e-9, atol=1e-9)
 
-    def test_unstructured_levels_ride_poh_and_pcg_converges(self):
+    def test_unstructured_levels_ride_poh_and_pcg_converges(self, auto_plans):
         import scipy.sparse as sp
 
         from cask_tpu.formats.convert import from_scipy
         from cask_tpu.formats.generate import random_uniform
-        from cask_tpu.ops.pallas.poh_kernels import PohMatrix
+        from cask_tpu.formats.matrix import CSR
         from cask_tpu.solvers import cg, smoothed_aggregation_amg
 
         s = to_scipy(random_uniform(3000, 3000, density=0.003, seed=4))
@@ -716,7 +716,7 @@ class TestAmgRouting:
         a = from_scipy(spd, format="csr")
         M = smoothed_aggregation_amg(a, theta=0.02)
         kinds = [type(lv.a) for lv in M.levels]
-        assert any(k is PohMatrix for k in kinds)
+        assert any(k is CSR for k in kinds)  # unstructured: no DIA plan
         b = np.random.default_rng(5).standard_normal(3000)
         res = cg(a.device_put(), b, tol=1e-8, maxiter=800, M=M)
         assert bool(res.converged)
@@ -725,9 +725,8 @@ class TestAmgRouting:
 
 
 class TestAmgFactoredPR:
-    """probe_amg3: the smoothed P/R POH packs were the V-cycle's
-    dominant term; large levels now apply P = (I - w D^-1 A) T in
-    factored form (one-hot tentative pack + the routed level op)."""
+    """Large levels apply P = (I - w D^-1 A) T in factored form: the
+    aggregate map (a gather and a segment_sum) + the routed level op."""
 
     def test_factored_objects_and_parity(self):
         from cask_tpu.solvers import smoothed_aggregation_amg
@@ -738,6 +737,7 @@ class TestAmgFactoredPR:
         assert isinstance(M.levels[0].p, _FactoredApply)
         assert isinstance(M.levels[0].r, _FactoredApply)
         assert M.levels[0].p.shape == (3136, M.level_sizes[1])
+        assert M.levels[0].r.shape == (M.level_sizes[1], 3136)
         ref = smoothed_aggregation_amg(a, route="csr")
         r = np.random.default_rng(7).standard_normal(a.shape[0])
         np.testing.assert_allclose(np.asarray(M(r)), np.asarray(ref(r)),
@@ -756,10 +756,32 @@ class TestAmgFactoredPR:
         assert np.linalg.norm(s @ x - b) / np.linalg.norm(b) < 1e-6
 
 
+class TestAmgAggregates:
+    """The tentative prolongator as its aggregate map equals the one-hot
+    matrix it stands for."""
+
+    @pytest.mark.parametrize("n,nc", [(10, 3), (257, 40)])
+    def test_prolong_restrict_match_dense(self, n, nc):
+        import jax.numpy as jnp
+
+        from cask_tpu.solvers.amg import Aggregates
+
+        rng = np.random.default_rng(n)
+        agg = np.concatenate([np.arange(nc), rng.integers(0, nc, n - nc)])
+        T = np.zeros((n, nc))
+        T[np.arange(n), agg] = 1.0
+        A = Aggregates(agg=jnp.asarray(agg.astype(np.int32)), n_coarse=nc)
+        xc = rng.standard_normal(nc)
+        r = rng.standard_normal(n)
+        np.testing.assert_allclose(np.asarray(A.prolong(jnp.asarray(xc))), T @ xc)
+        np.testing.assert_allclose(np.asarray(A.restrict(jnp.asarray(r))), T.T @ r,
+                                   rtol=1e-13)
+
+
 class TestAmgPytree:
     """The hierarchy is a registered pytree: it rides into jitted solves
-    as an ARGUMENT (probe_amg9: closure-constant programs compile ~11x
-    slower and re-trace per call — the measured AMG dispatch wall)."""
+    as an ARGUMENT (closure-constant programs compile slower and
+    re-trace per call)."""
 
     def test_jitted_solve_with_hierarchy_argument(self):
         import jax
@@ -797,7 +819,7 @@ class TestAmgPytree:
         M = smoothed_aggregation_amg(stencil_2d(20))
         leaves, treedef = jax.tree_util.tree_flatten(M)
         M2 = jax.tree_util.tree_unflatten(treedef, leaves)
-        assert M2.poh_precision == M.poh_precision
+        assert (M2.omega, M2.nu_pre, M2.nu_post) == (M.omega, M.nu_pre, M.nu_post)
         assert len(M2.levels) == len(M.levels)
         b = np.random.default_rng(6).standard_normal(M.levels[0].a.shape[0])
         np.testing.assert_allclose(np.asarray(M2(b)), np.asarray(M(b)),

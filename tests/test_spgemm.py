@@ -1,5 +1,6 @@
 """SpGEMM (A·A, A·B) vs scipy (BASELINE config 4: graph matrices)."""
 
+import jax
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -133,30 +134,30 @@ class TestSparseAdd:
 
 
 class TestPohNumeric:
+    """The numeric phase on a held plan: values update without
+    re-planning (the solver-pipeline mode)."""
+
     def test_aa_powerlaw_matches_scipy(self):
         a = power_law(300, avg_degree=5, seed=7, dtype=np.float32)
         plan = spgemm_plan(a, a)
-        bound = plan.bind_poh(np.asarray(a.data), nnz_b=a.nnz)
-        c = bound(np.asarray(a.data))
+        c = jax.jit(plan.numeric)(a.data, a.data)
         ref = (to_scipy(a) @ to_scipy(a)).tocsr()
         ref.sum_duplicates()
-        got = to_scipy(c)
-        d = abs(got - ref)
-        assert d.nnz == 0 or d.max() < 1e-3  # f32 + one-hot MXU path
+        d = abs(to_scipy(c) - ref)
+        assert d.nnz == 0 or d.max() < 1e-4
 
     def test_ab_value_stream(self):
-        # A static, B values change: rebind-free numeric updates
+        # A static, B values change: numeric updates on one plan
         a = random_uniform(80, 120, density=0.05, seed=3, dtype=np.float32)
         b = random_uniform(120, 60, density=0.05, seed=4, dtype=np.float32)
         plan = spgemm_plan(a, b)
-        bound = plan.bind_poh(np.asarray(a.data), nnz_b=b.nnz)
         for seed in (0, 1):
             bd = np.random.default_rng(seed).standard_normal(b.nnz).astype(np.float32)
-            c = bound(bd)
+            c = plan.numeric(np.asarray(a.data), bd)
             ref = (to_scipy(a) @ sp.csr_matrix(
                 (bd, np.asarray(b.indices), np.asarray(b.indptr)), shape=b.shape)).tocsr()
             d = abs(to_scipy(c) - ref)
-            assert d.nnz == 0 or d.max() < 1e-3
+            assert d.nnz == 0 or d.max() < 1e-4
 
     def test_out_id_sorted(self):
         # the segment_sum hint in numeric() relies on this invariant

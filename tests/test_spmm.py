@@ -1,5 +1,6 @@
 """SpMM (sparse × dense tall-skinny) vs scipy (BASELINE config 3)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,53 +65,45 @@ class TestSpmmDia:
         a = stencil_2d(18)
         x = _X(a, k)
         d = dia_plan(a)
-        y = d._spmm_xla(jnp.asarray(x))
+        y = d.spmm(jnp.asarray(x))
         np.testing.assert_allclose(np.asarray(y), to_scipy(a) @ x, rtol=1e-12, atol=1e-10)
 
     @pytest.mark.parametrize("k", [32, 128])
     def test_dia_pallas_interpret(self, k):
+        # the DIA formulation at a size with many row blocks, jitted
         a = banded(9000, 2, seed=5)
         x = _X(a, k)
         d = dia_plan(a)
-        from cask_tpu.ops.pallas.dia_kernels import dia_spmm_pallas, pallas_ok
-
-        assert pallas_ok(d, k=k)
-        y = dia_spmm_pallas(d, jnp.asarray(x))
+        y = jax.jit(lambda m, v: m.spmm(v))(d, jnp.asarray(x))
         np.testing.assert_allclose(np.asarray(y), to_scipy(a) @ x, rtol=1e-12, atol=1e-10)
 
 
 class TestSpmmDiaKt:
-    """Transposed-k SpMM: k in sublanes, rows in lanes (k ≤ 64 path)."""
+    """Narrow k (k ≤ 64) through the DIA formulation."""
 
     @pytest.mark.parametrize("k", [8, 20, 32, 64])
     def test_vs_scipy(self, k):
         a = banded(9000, 2, seed=5)
         x = _X(a, k)
         d = dia_plan(a)
-        from cask_tpu.ops.pallas.dia_kernels import dia_spmm_pallas_kt, kt_ok
-
-        assert kt_ok(d, k)
-        y = dia_spmm_pallas_kt(d, jnp.asarray(x))
+        y = spmm(d, jnp.asarray(x))
         np.testing.assert_allclose(np.asarray(y), to_scipy(a) @ x, rtol=1e-12, atol=1e-10)
 
     def test_dispatch_uses_kt_for_narrow_k(self):
         a = stencil_2d(25)
         x = _X(a, 16)
-        d = dia_plan(a)
-        y = d.spmm(jnp.asarray(x), method="pallas")
+        y = spmm(a, jnp.asarray(x), method="dia")
         np.testing.assert_allclose(np.asarray(y), to_scipy(a) @ x, rtol=1e-12, atol=1e-10)
 
     def test_padded_layout_roundtrip(self):
-        from cask_tpu.ops.pallas.dia_kernels import (
-            dia_spmm_pallas_kt_padded, pad_xt_spmm)
-
+        # the plan is natural-order in and out: an SpMM output chains as
+        # the next input with no relayout
         a = banded(3000, 4, seed=6)
         d = dia_plan(a)
         x = _X(a, 32)
-        xt = pad_xt_spmm(d, jnp.asarray(x))
-        yt = dia_spmm_pallas_kt_padded(d, xt)
-        np.testing.assert_allclose(np.asarray(yt[:32, : a.shape[0]].T),
-                                   to_scipy(a) @ x, rtol=1e-12, atol=1e-10)
+        y2 = d.spmm(d.spmm(jnp.asarray(x)))
+        s = to_scipy(a)
+        np.testing.assert_allclose(np.asarray(y2), s @ (s @ x), rtol=1e-12, atol=1e-9)
 
     def test_asymmetric_offsets(self):
         # strictly upper-shifted band (lo=0) and lower-shifted band (hi=0)
@@ -126,20 +119,13 @@ class TestSpmmDiaKt:
             a = from_scipy(s, format="csr")
             d = dia_plan(a)
             x = rng.standard_normal((n, 24))
-            from cask_tpu.ops.pallas.dia_kernels import dia_spmm_pallas_kt
-
-            y = dia_spmm_pallas_kt(d, jnp.asarray(x))
+            y = d.spmm(jnp.asarray(x))
             np.testing.assert_allclose(np.asarray(y), s @ x, rtol=1e-12, atol=1e-10)
 
 
 class TestSpmmBdiaDispatch:
     def test_bdia_matrix_spmm_and_transpose(self):
-        import jax.numpy as jnp
-        import numpy as np
-
-        from cask_tpu import bdia_plan, spmm
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import fem_blocks
+        from cask_tpu import bdia_plan
 
         a = fem_blocks(6, dof=2)
         plan = bdia_plan(a, (2, 2))
@@ -152,102 +138,67 @@ class TestSpmmBdiaDispatch:
         np.testing.assert_allclose(np.asarray(yt), to_scipy(a).T @ xt, rtol=1e-11)
 
     def test_ring_vals_pack_no_tracer_leak(self):
-        """First call under jit, second call in a fresh jit: the value
-        repack memo must never cache a tracer (probe_bspmm1 regression —
-        UnexpectedTracerError on the second trace)."""
-        import jax
-        import jax.numpy as jnp
-        import numpy as np
-
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import fem_blocks
+        """First call under jit, second call in a fresh jit with the plan
+        as a traced argument: nothing host-side is memoized from a trace."""
         from cask_tpu.ops.bdia import bdia_plan
-        from cask_tpu.ops.pallas.bdia_kernels import (bdia_mm_ok,
-                                                      bdia_spmm_pallas_ring)
 
         a = fem_blocks(16, dof=4, dtype=np.float32)
         plan = bdia_plan(a, (4, 4))
         k = 128
-        assert bdia_mm_ok(plan, k)
         x = np.random.default_rng(5).standard_normal(
             (a.shape[1], k)).astype(np.float32)
 
-        y1 = jax.jit(lambda v: bdia_spmm_pallas_ring(plan, v))(jnp.asarray(x))
-        # memo must hold a concrete array or nothing — never a tracer
-        for v in getattr(plan, "_mm_pack_cache", {}).values():
-            assert not isinstance(v, jax.core.Tracer)
-        y2 = jax.jit(lambda v: 2.0 * bdia_spmm_pallas_ring(plan, v))(
-            jnp.asarray(x))
+        y1 = jax.jit(lambda v: spmm(plan, v))(jnp.asarray(x))
+        y2 = jax.jit(lambda p, v: 2.0 * spmm(p, v))(plan, jnp.asarray(x))
         ref = to_scipy(a) @ x
         np.testing.assert_allclose(np.asarray(y1), ref, rtol=2e-4, atol=1e-5)
         np.testing.assert_allclose(np.asarray(y2), 2 * ref, rtol=2e-4, atol=1e-5)
 
 
 class TestRingMxuHybrid:
-    """EXPERIMENTAL MXU-hybrid ring SpMM (VERDICT r2 item 5): near band
-    on the systolic array, far diagonals on the VPU."""
+    """f32 stencil SpMM at k=128 through the DIA plan: exact f32 class."""
 
     def test_matches_ring_within_bf16(self):
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import stencil_2d
-        from cask_tpu.ops.dia import dia_plan
-        from cask_tpu.ops.pallas.dia_kernels import (
-            dia_spmm_pallas_ring_mxu_padded, from_spmm_ring, to_spmm_ring)
-
         a = stencil_2d(64, dtype=np.float32)
         plan = dia_plan(a)
         X = np.random.default_rng(0).standard_normal(
             (a.shape[1], 128)).astype(np.float32)
-        xp = to_spmm_ring(plan, jnp.asarray(X))
-        Y = np.asarray(from_spmm_ring(
-            plan, dia_spmm_pallas_ring_mxu_padded(plan, xp), 128,
-            layout_dtype=np.float32))
+        Y = np.asarray(plan.spmm(jnp.asarray(X)))
         ref = to_scipy(a) @ X
-        assert np.abs(Y - ref).max() / np.abs(ref).max() < 5e-3
+        assert np.abs(Y - ref).max() / np.abs(ref).max() < 1e-6
 
 
 class TestBdiaRingGeometry:
-    def test_prefers_grid_aligned_tm(self):
-        # fem 256x256 grid, dof 4: offsets {-256,-1,0,1,256}.  tm=256
-        # grid-aligns 3 of 5 offsets (12/20 pieces skip the two-slice
-        # concat) while tm=1024/512 align only d=0 — the geometry must
-        # trade step count for concat count (VERDICT r3 item 4b).
+    @pytest.mark.parametrize("nx", [256, 64])
+    def test_prefers_grid_aligned_tm(self, nx):
+        # the device-built FEM plan: natural (br, npairs, nbr) layout,
+        # pairs in (offset, component) order, exact at k=4 vs the host
+        # reference matrix
         from cask_tpu.formats.device_gen import fem_bdia_device
-        from cask_tpu.ops.pallas.bdia_kernels import _bdia_mm_geometry
+        from cask_tpu.parallel import fem_formula_bsr
 
-        plan = fem_bdia_device(256, dof=4, dtype=jnp.float32)
-        tm = _bdia_mm_geometry(plan, 128, 4, 4)
-        assert tm == 256
-        aligned = sum(1 for (_, d) in plan.pairs if d % tm == 0)
-        assert aligned == 12
+        plan = fem_bdia_device(nx, dof=4, dtype=jnp.float64)
+        assert plan.vals.shape == (4, 20, nx * nx)
+        assert plan.pairs[:4] == ((0, -nx), (1, -nx), (2, -nx), (3, -nx))
+        X = np.random.default_rng(nx).standard_normal((plan.shape[1], 4))
+        ref = to_scipy(fem_formula_bsr(nx, dof=4)) @ X
+        np.testing.assert_allclose(np.asarray(plan.spmm(jnp.asarray(X))), ref,
+                                   rtol=1e-12, atol=1e-12)
 
     def test_largest_tm_on_ties(self):
-        # offsets {-64,-1,0,1,64} never align with any candidate tm, so
-        # the tie-break keeps the largest feasible strip
+        # f32 device plan against its own f64 twin
         from cask_tpu.formats.device_gen import fem_bdia_device
-        from cask_tpu.ops.pallas.bdia_kernels import _bdia_mm_geometry
 
-        plan = fem_bdia_device(64, dof=4, dtype=jnp.float32)
-        tm = _bdia_mm_geometry(plan, 128, 4, 4)
-        # 512 is the largest VMEM-feasible strip for this shape (1024
-        # blows the ring budget) — unchanged from the pre-alignment rule
-        assert tm == 512
+        p32 = fem_bdia_device(64, dof=4, dtype=jnp.float32)
+        p64 = fem_bdia_device(64, dof=4, dtype=jnp.float64)
+        np.testing.assert_array_equal(np.asarray(p32.vals, np.float64),
+                                      np.asarray(p64.vals))
 
 
 class TestBsrSpmmAutoPlanRoute:
-    """spmm(bsr, X) shares spmv's cached BDIA plan on TPU."""
+    """spmm(bsr, X) shares spmv's cached BDIA plan."""
 
-    def test_auto_route_and_shared_cache(self, monkeypatch):
-        import importlib
-
-        from cask_tpu.formats.convert import csr_to_bsr, to_scipy
-        from cask_tpu.formats.generate import fem_blocks
-        from cask_tpu.ops.spmm import spmm
-
-        spmv_mod = importlib.import_module("cask_tpu.ops.spmv")
-        monkeypatch.setattr(spmv_mod, "_AUTO_BSR_PLAN_FORCE", True)
+    def test_auto_route_and_shared_cache(self, auto_plans):
         a = fem_blocks(10, dof=4)
         b = csr_to_bsr(a, (4, 4))
         X = jnp.asarray(np.random.default_rng(20).standard_normal(
@@ -268,16 +219,7 @@ class TestBsrSpmmAutoPlanRoute:
 class TestCsrSpmmAutoRoute:
     """spmm(csr, X) rides the same cached DIA plan as spmv(csr, x)."""
 
-    def test_banded_csr_routes_through_plan(self, monkeypatch):
-        import importlib
-
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import banded
-
-        spmv_mod = importlib.import_module("cask_tpu.ops.spmv")
-        monkeypatch.setattr(spmv_mod, "_AUTO_BSR_PLAN_FORCE", True)
+    def test_banded_csr_routes_through_plan(self, auto_plans):
         a = banded(500, 4, seed=31)
         X = np.random.default_rng(31).standard_normal((a.shape[1], 8))
         Y = np.asarray(spmm(a, jnp.asarray(X)))
@@ -292,16 +234,7 @@ class TestCsrSpmmAutoRoute:
         np.testing.assert_allclose(y, to_scipy(a) @ X[:, 0],
                                    rtol=1e-10, atol=1e-10)
 
-    def test_unstructured_declines(self, monkeypatch):
-        import importlib
-
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import power_law
-
-        spmv_mod = importlib.import_module("cask_tpu.ops.spmv")
-        monkeypatch.setattr(spmv_mod, "_AUTO_BSR_PLAN_FORCE", True)
+    def test_unstructured_declines(self, auto_plans):
         a = power_law(400, avg_degree=5, seed=32)
         X = np.random.default_rng(32).standard_normal((a.shape[1], 4))
         Y = np.asarray(spmm(a, jnp.asarray(X)))
@@ -310,87 +243,61 @@ class TestCsrSpmmAutoRoute:
 
 
 class TestBdiaSlabSpmmRoute:
-    """Wide-k BDIA SpMM rides the MXU slab kernel (exact precision) by
-    default; the ring stays reachable via method='pallas_bdia'."""
+    """Wide-k BDIA SpMM through the BDIA formulation: exact, jittable
+    with the plan as an argument, and memoizing nothing under a trace."""
 
     def _plan(self, nx=16, dof=4):
-        import jax.numpy as jnp  # noqa: F401
-
-        from cask_tpu.formats.generate import fem_blocks
         from cask_tpu.ops.bdia import bdia_plan
 
         a = fem_blocks(nx, dof=dof, return_bsr=True)
         return bdia_plan(a, (dof, dof)), a
 
     def test_slab_route_matches_scipy(self):
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-
         p, a = self._plan()
         X = np.random.default_rng(41).standard_normal((p.shape[1], 128))
-        Y = np.asarray(spmm(p, jnp.asarray(X), method="slab"))
+        Y = np.asarray(spmm(p, jnp.asarray(X)))
         np.testing.assert_allclose(Y, to_scipy(a) @ X, rtol=1e-10, atol=1e-9)
-        # plan memoized on the instance; second call reuses it
-        sl = getattr(p, "_slab_auto_plan", None)
-        assert sl is not None
-        spmm(p, jnp.asarray(X), method="slab")
-        assert p._slab_auto_plan is sl
 
     def test_ring_still_forced_by_pallas_bdia(self):
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-
+        # the removed kernel methods are refused, not silently rerouted
         p, a = self._plan(12)
         X = np.random.default_rng(42).standard_normal((p.shape[1], 96))
-        Y = np.asarray(spmm(p, jnp.asarray(X), method="pallas_bdia"))
+        for method in ("pallas_bdia", "slab", "pallas_bsr"):
+            with pytest.raises(ValueError, match="unknown spmm method"):
+                spmm(p, jnp.asarray(X), method=method)
+        Y = np.asarray(spmm(p, jnp.asarray(X), method="xla"))
         np.testing.assert_allclose(Y, to_scipy(a) @ X, rtol=1e-10, atol=1e-9)
-        # the explicit ring route must not build a slab plan
-        assert getattr(p, "_slab_auto_plan", "missing") == "missing"
 
-    def test_no_slab_build_under_trace(self):
-        import jax
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-
+    def test_no_slab_build_under_trace(self, auto_plans):
         p, a = self._plan(12)
         X = np.random.default_rng(43).standard_normal((p.shape[1], 96))
 
         @jax.jit
-        def f(pp, XX):
-            return spmm(pp, XX, method="slab")
+        def f(bb, XX):
+            return spmm(bb, XX)
 
-        Y = np.asarray(f(p, jnp.asarray(X)))
+        Y = np.asarray(f(a, jnp.asarray(X)))
         np.testing.assert_allclose(Y, to_scipy(a) @ X, rtol=1e-10, atol=1e-9)
         # tracer leaves must not be memoized as a plan
-        assert getattr(p, "_slab_auto_plan", None) is None
+        assert getattr(a, "_bdia_auto_plan", None) is None
 
 
 class TestSpmmSlabPlanArgument:
-    """A held BdiaSlabs IS an spmm operator: jitted solver loops pass it
-    as a pytree argument (exact precision)."""
+    """A held BdiaMatrix IS an spmm operator: jitted solver loops pass it
+    as a pytree argument."""
 
     def test_slab_plan_as_traced_operand(self):
-        import jax
-        import jax.numpy as jnp
-
-        from cask_tpu.formats.convert import to_scipy
-        from cask_tpu.formats.generate import fem_blocks
         from cask_tpu.ops.bdia import bdia_plan
-        from cask_tpu.ops.pallas.bdia_slab import bdia_slab_plan
 
         a = fem_blocks(16, dof=4, return_bsr=True)
         p = bdia_plan(a, (4, 4))
-        sl = bdia_slab_plan(p, 8)
         X = np.random.default_rng(61).standard_normal((p.shape[1], 96))
 
         @jax.jit
-        def f(SL, XX):
-            return spmm(SL, XX)
+        def f(P, XX):
+            return spmm(P, XX)
 
-        Y = np.asarray(f(sl, jnp.asarray(X)))
+        Y = np.asarray(f(p, jnp.asarray(X)))
         np.testing.assert_allclose(Y, to_scipy(a) @ X, rtol=1e-10, atol=1e-9)
-        with pytest.raises(ValueError, match="transpose"):
-            spmm(sl, jnp.asarray(X), transpose=True)
+        Yt = np.asarray(spmm(p, jnp.asarray(X), transpose=True))
+        np.testing.assert_allclose(Yt, to_scipy(a).T @ X, rtol=1e-10, atol=1e-9)

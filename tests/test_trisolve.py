@@ -226,8 +226,8 @@ class TestIlu0Device:
 
 
 class TestJacobiTrisolve:
-    """Iterative (Jacobi–Richardson) sweep solve — the TPU-fast
-    approximate trisolve (VERDICT r2 item 4)."""
+    """Iterative (Jacobi–Richardson) sweep solve — the parallel
+    approximate trisolve."""
 
     @pytest.mark.parametrize("lower", [True, False])
     def test_exact_after_n_sweeps(self, lower):

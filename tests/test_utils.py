@@ -42,7 +42,7 @@ class TestCheckpoint:
         rng = np.random.default_rng(1)
         x = rng.standard_normal(300)
         np.testing.assert_allclose(
-            np.asarray(d2._spmv_xla(x)), np.asarray(d._spmv_xla(x)), rtol=1e-13
+            np.asarray(d2.spmv(x)), np.asarray(d.spmv(x)), rtol=1e-13
         )
 
 
@@ -54,7 +54,7 @@ class TestDiaTranspose:
         dt = transpose_plan(d)
         rng = np.random.default_rng(2)
         x = rng.standard_normal(a.shape[0])
-        y = dt._spmv_xla(x)
+        y = dt.spmv(x)
         np.testing.assert_allclose(np.asarray(y), to_scipy(a).T @ x, rtol=1e-12, atol=1e-12)
 
     def test_spmv_dispatch_transpose(self):
@@ -106,8 +106,11 @@ class TestBenchHarness:
         recs = bench_matrix("t", stencil_2d(16), variants=["csr_xla"], out=buf)
         assert len(recs) == 1
         line = json.loads(buf.getvalue().strip())
-        for key in ("matrix", "op", "variant", "seconds_per_op", "roofline_frac"):
+        for key in ("matrix", "op", "variant", "seconds_per_op", "platform",
+                    "device_kind", "device_count"):
             assert key in line
+        # a CPU time is never reported as a share of a device's peak
+        assert line["platform"] == "cpu" and "roofline_frac" not in line
 
     def test_scaling_records(self):
         from cask_tpu.bench.harness import bench_scaling
@@ -132,6 +135,60 @@ class TestProfiling:
 
         found = any(files for _, _, files in os.walk(d))
         assert found
+
+
+_SYNTHETIC_TRACE = """
+planes {
+  id: 1
+  name: "/device:GPU:0"
+  lines {
+    id: 1
+    name: "Stream #13(Compute)"
+    timestamp_ns: 1000
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 5000000 }
+    events { metadata_id: 2 offset_ps: 3000000 duration_ps: 4000000 }
+    events { metadata_id: 1 offset_ps: 20000000 duration_ps: 5000000 }
+  }
+  lines {
+    id: 2
+    name: "XLA Ops"
+    timestamp_ns: 1000
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 99000000 }
+  }
+  event_metadata { key: 1 value { id: 1 name: "loop_fusion" } }
+  event_metadata { key: 2 value { id: 2 name: "copy" } }
+}
+planes { id: 2 name: "/host:CPU" }
+"""
+
+
+class TestDeviceKernels:
+    """The trace → device metrics reduction the bench uses."""
+
+    def _profile(self, text):
+        from jax.profiler import ProfileData
+
+        return ProfileData.from_serialized_xspace(
+            ProfileData.text_proto_to_serialized_xspace(text))
+
+    def test_busy_window_and_kernels(self):
+        from cask_tpu.utils.profiling import reduce_device_planes
+
+        red = reduce_device_planes(self._profile(_SYNTHETIC_TRACE))
+        # stream events only (the derived "XLA Ops" line is ignored);
+        # overlapping intervals count once
+        assert red == {"busy_ns": 12000.0, "window_ns": 25000.0,
+                       "kernels": {"loop_fusion": 10000.0, "copy": 4000.0}}
+
+    def test_cpu_trace_has_no_device_plane(self, tmp_path):
+        import jax.numpy as jnp
+
+        from cask_tpu.utils.profiling import device_kernels, trace
+
+        with trace(str(tmp_path)):
+            (jnp.ones(64) * 2).block_until_ready()
+        assert device_kernels(str(tmp_path)) is None
+        assert device_kernels(str(tmp_path / "empty")) is None
 
 
 class TestSolverOperator:
